@@ -1,0 +1,544 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero, and no result line is printed):
+1. environment: torch / CUDA / nvcc versions, the card's name and power
+   limit;
+2. build: nvcc builds every kernel source of the checkout (in parallel);
+3. kernel parity: the tile-blend forward (K1) and backward (K2) kernels
+   against their plain PyTorch versions, on the 32x32 test scene and at
+   the mapping shape (512x384, 2^17 Gaussians, max_per_tile 512) in the
+   single-view and the V=10 multi-view form;
+4. kernel times at the mapping shape (CUDA events), beside the plain
+   versions and the bound the card could reach;
+5. small-input agreement: one mapping event on the synthetic plane of
+   tests/test_torch_mapping.py on the card vs on the CPU;
+6. the slice: SLAMSystem.run over 384x512 synthetic frames with the
+   full-width CUT3R (random weights from a seed) and Gaussian mapping,
+   two mapping events, then terminate; both kernels' launch counters
+   must rise in this run;
+then the kernels JSON line, the card line and the result JSON line.
+
+Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
+1e-4 of its elements, the rest bounded by 0.05: single elements may flip
+where the T_MIN stop or the quantized median gate sits within float
+rounding of its threshold (the kernel multiplies transmittance
+sequentially, the plain version through a chunk prefix product). K2 vs
+the plain VJP, channel by channel (the 16 packed channels differ in scale
+by four orders): max |err_k| / max |ref_k| < 5e-4 for every k (the JAX
+suite's gradient tolerance), with the median depth's cotangent nonzero;
+rows where K1 and its plain version chose another median contributor
+(mdep apart by more than 1e-5 (1 + |mdep|)) are left out of the depth
+channels 13-15 only, and counted.
+
+Bounds: the largest of bytes / HBM rate, FP32 FLOPs / FP32 peak and MUFU
+operations / MUFU rate, with the (entry, pixel) pairs counted from this
+run's inputs by kind (rejected, stopping, blended) and each kind costed
+from the kernel bodies (FLOPS_PER_PAIR, MUFU_PER_PAIR).
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# H100 SXM peaks at the 700 W limit (NVIDIA data sheet; 132 SMs at 1.98 GHz)
+PEAK_FP32 = 67e12               # FP32 FLOP/s outside the tensor cores
+PEAK_MUFU = 132 * 16 * 1.98e9   # exp / reciprocal results per s (16/clk/SM)
+PEAK_BYTES = 3.35e12            # HBM3 B/s
+# Least work per (entry, pixel) pair the blend visits, counted from the
+# kernel bodies as (rejected, stopping, blended) pairs; FMA = 2 FLOPs.
+# rejected (alpha < 1/255): power polynomial 5 FMA, the exp's scale, the
+#   0.99 clamp, the test = 13 FLOPs and one MUFU exp;
+# stopping (T (1 - alpha) < T_MIN): + 1 - alpha, the product, the test = 16;
+# blended, K1: + alpha T, 8 + 2 + 1 FMA (channels, depth, its sum) and the
+#   median gate = 43;
+# blended, K2: the recompute (16) + the cotangent b (9 FMA), dalpha, the
+#   median gate, dt, dpower, the suffix FMA, 16 products and their 16 sums
+#   into the per-entry reduction = 85, and one more MUFU (1 / (1 - alpha)).
+FLOPS_PER_PAIR = {"gs_blend_fwd": (13, 16, 43), "gs_blend_bwd": (13, 16, 85)}
+MUFU_PER_PAIR = {"gs_blend_fwd": (1, 1, 1), "gs_blend_bwd": (1, 1, 2)}
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return p.stdout.strip().splitlines()[0] if p.returncode == 0 else \
+        "unknown card"
+
+
+def synth_frames(n, H, W, seed=0):
+    """Sliding-window panorama: textured, overlapping, translating (the
+    port's copy of the JAX package's benchmark frames)."""
+    rng = np.random.default_rng(seed)
+    pano = rng.uniform(0, 255, (H + 16, W + 8 * n, 3)).astype(np.float32)
+    for _ in range(2):
+        pano = (pano + np.roll(pano, 1, 0) + np.roll(pano, 1, 1)
+                + np.roll(pano, -1, 0) + np.roll(pano, -1, 1)) / 5.0
+    pano = pano.astype(np.uint8)
+    return [np.ascontiguousarray(pano[8:8 + H, i * 8:i * 8 + W])
+            for i in range(n)]
+
+
+def cuda_ms(fn, n=20):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+# ---------------------------------------------------------------------------
+# kernel inputs
+# ---------------------------------------------------------------------------
+
+def frustum_scene(P, H, W, f, V, seed):
+    """P random Gaussians filling a view frustum (depth 1.5-4.5), seen by
+    V slightly shifted cameras. Returns camera-frame (V, P, 3) means,
+    (V, P, 4) quats and the shared attributes, on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    z = torch.rand(P, generator=g, device=dev) * 3 + 1.5
+    xy = (torch.rand(P, 2, generator=g, device=dev) - 0.5) \
+        * torch.tensor([W / f, H / f], device=dev) * z[:, None] * 1.1
+    m = torch.cat([xy, z[:, None]], 1)
+    q = torch.randn(P, 4, generator=g, device=dev)
+    q = q / q.norm(dim=1, keepdim=True)
+    s = torch.rand(P, 3, generator=g, device=dev) * 0.02 + 0.005
+    o = torch.rand(P, generator=g, device=dev) * 0.8 + 0.1
+    c = torch.rand(P, 3, generator=g, device=dev)
+    shift = torch.tensor([0.01, -0.005, 0.01], device=dev)
+    return (torch.stack([m + v * shift for v in range(V)]),
+            torch.stack([q] * V), s, o, c)
+
+
+def small_scene():
+    """The random 32x32 scene of tests/test_torch_gs_raster.py, V=3."""
+    import torch
+    rng = np.random.default_rng(3)
+    n = 50
+    means = np.stack([rng.uniform(-0.4, 0.4, n), rng.uniform(-0.4, 0.4, n),
+                      rng.uniform(1.0, 3.0, n)], -1)
+    q = rng.normal(size=(n, 4))
+    q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    arrs = [torch.tensor(np.asarray(a, np.float32), device="cuda") for a in (
+        means, q, rng.uniform(0.02, 0.1, (n, 3)), rng.uniform(0.2, 0.9, n),
+        rng.uniform(0, 1, (n, 3)))]
+    shift = torch.tensor([0.02, -0.01, 0.03], device="cuda")
+    arrs[0] = torch.stack([arrs[0] + v * shift for v in range(3)])
+    arrs[1] = torch.stack([arrs[1]] * 3)
+    return arrs
+
+
+# ---------------------------------------------------------------------------
+# kernel parity
+# ---------------------------------------------------------------------------
+
+def k1_errors(G, A, ext):
+    """K1 against the plain forward. Returns (max error of O / dsum / tleft
+    / tchk, the largest fraction of elements off, the kernel's outputs, and
+    the (R,) mask of rows where the two chose another median contributor:
+    mdep apart by more than 1e-5 (1 + |mdep|), where rounding alone moves
+    it by about 1e-7)."""
+    (O, d, md, T), tchk = G.blend_forward(A, ext, with_residuals=True)
+    (O2, d2, md2, T2), tchk2 = G.blend_forward_plain(A, ext, True)
+    worst, flips = 0.0, 0.0
+    for name, a, b in (("O", O[..., :7], O2[..., :7]), ("dsum", d, d2),
+                       ("mdep", md, md2), ("tleft", T, T2),
+                       ("tchk", tchk, tchk2)):
+        err = (a - b).abs()
+        bad = err > 1e-3 + 1e-3 * b.abs()
+        frac = float(bad.float().mean())
+        flips = max(flips, frac)
+        emax = float(err.max())
+        if name != "mdep":
+            worst = max(worst, emax)
+        if frac > 1e-4 or (emax > 0.05 and name != "mdep"):
+            fail(f"K1 {name}: {frac:.2e} of elements off, max err {emax}")
+    med_flip = ((md - md2).abs() > 1e-5 * (1 + md2.abs())).any(1)
+    return worst, flips, (O, d, md, T, tchk), med_flip
+
+
+def k2_errors(G, A, ext, tchk, T, cots, rows_per_call, med_flip):
+    """K2 against the plain VJP, channel by channel: max over entries of
+    |err_k| / max |ref_k| for each of the 16 channels. The depth channels
+    13-15 leave out the rows in ``med_flip`` (where kernel and plain K1
+    chose another median contributor: that pixel's gmd then lands on
+    another entry's dt). Returns (per-channel errors, max |err|)."""
+    import torch
+    dA = G.blend_backward(A, ext, tchk, T, *cots)
+    ref = torch.cat([G.blend_backward_plain(
+        A[r:r + rows_per_call], ext[r:r + rows_per_call],
+        *[c[r:r + rows_per_call] for c in cots])
+        for r in range(0, A.shape[0], rows_per_call)], 0)
+    err = (dA - ref).abs()
+    err[med_flip, :, 13:] = 0.0
+    rel = err.amax((0, 1)) / ref.abs().amax((0, 1)).clamp(min=1e-12)
+    bad = [k for k in range(rel.shape[0]) if not float(rel[k]) < 5e-4]
+    if bad:
+        fail(f"K2 channels {bad}: max err / max |ref| = "
+             f"{[float(rel[k]) for k in bad]}")
+    return rel, float(err.max())
+
+
+def cotangents(O, d, T):
+    """Seeded standard-normal cotangents of K1's four outputs (the median
+    depth's included)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(1)
+    return [torch.randn(x.shape, generator=g, device="cuda")
+            for x in (O, d, d, T)]
+
+
+def blend_census(A, ext):
+    """The (entry, pixel) pairs the kernels visit on these inputs, as
+    (rejected, stopping, blended), from the plain forward's decisions
+    taken chunk by chunk as blend_forward_plain takes them."""
+    import torch
+    from cut3r_slam_tpu_torch.ops import gs_raster_cuda as G
+    from cut3r_slam_tpu_torch.ops.gs_raster import ALPHA_MIN, T_MIN
+    R = A.shape[0]
+    dev = A.device
+    x, y = G._pixel_xy(dev)
+    T = torch.ones(R, G.PX, device=dev)
+    done = torch.zeros(R, G.PX, dtype=torch.bool, device=dev)
+    counts = torch.zeros(3, dtype=torch.long, device=dev)
+    for base in range(0, int(ext.max()), G.CHUNK):
+        Ac = A[:, base:base + G.CHUNK]
+        inside = ((base + torch.arange(Ac.shape[1], device=dev))[None, :]
+                  < ext[:, None])[..., None]
+        q = [Ac[..., 7 + k, None] for k in range(6)]
+        power = q[0] + q[1] * x + q[2] * y + q[3] * (x * x) \
+            + q[4] * (y * y) + q[5] * (x * y)
+        alpha_c = torch.clamp(torch.exp(power), max=0.99)
+        ok = (alpha_c >= ALPHA_MIN) & inside
+        inc0 = torch.cumprod(torch.where(ok, 1.0 - alpha_c,
+                                         torch.ones_like(alpha_c)), 1)
+        below = T[:, None] * inc0 < T_MIN       # the pixel stops here or before
+        before = torch.cat([torch.zeros_like(below[:, :1]), below[:, :-1]], 1)
+        visited = inside & ~done[:, None] & ~before
+        counts[0] += (visited & ~ok).sum()
+        counts[1] += (visited & ok & below).sum()
+        counts[2] += (visited & ok & ~below).sum()
+        keepb = ~below & ~done[:, None]
+        T = T * torch.where(keepb, inc0, torch.ones_like(inc0)).min(1).values
+        done = done | below[:, -1]
+    return [int(n) for n in counts]
+
+
+def bound_ms(name, A, ext, tchk, pairs):
+    """The least time the card could take for the kernel's work on these
+    inputs: the largest of bytes / HBM rate, FP32 FLOPs / FP32 peak and
+    MUFU operations / MUFU rate, with ``pairs`` = (rejected, stopping,
+    blended) from blend_census. Returns (ms, "bytes" or "operations",
+    (bytes ms, FLOP ms, MUFU ms))."""
+    R, K, _ = A.shape
+    entries = int(ext.long().sum())
+    px = R * 256
+    if name == "gs_blend_fwd":     # A, extent in; O (8), 3 maps, tchk out
+        nbytes = entries * 64 + R * 4 + px * 4 * (8 + 3) + tchk.numel() * 4
+    else:                          # A, extent, tchk, tleft, 4 cotangents in
+        nbytes = entries * 64 + R * 4 + tchk.numel() * 4 \
+            + px * 4 * (1 + 8 + 3) + R * K * 64
+    flops = sum(n * f for n, f in zip(pairs, FLOPS_PER_PAIR[name]))
+    mufu = sum(n * m for n, m in zip(pairs, MUFU_PER_PAIR[name]))
+    parts = (nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3,
+             mufu / PEAK_MUFU * 1e3)
+    return max(parts), ("bytes" if parts[0] >= max(parts[1:]) else
+                        "operations"), parts
+
+
+# ---------------------------------------------------------------------------
+# the slice
+# ---------------------------------------------------------------------------
+
+def plausible_random_cut3r(seed):
+    """Full-width CUT3R with random weights from a seeded generator. The
+    self-pointmap head's last conv is scaled down and biased to (0, 0, 1)
+    and the pose head to the identity quaternion, so the random model
+    predicts a textured plane in front of a near-static camera (positive
+    depths the mapping stage can fit) instead of noise around zero."""
+    import torch
+    from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
+    model = CUT3R(CUT3RConfig(), device="cuda")
+    model.init_random(torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        last = model.downstream_head.dpt_self.head[4]
+        last.weight.mul_(0.05)
+        last.bias.copy_(torch.tensor([0.0, 0.0, 1.0, 0.0]))
+        fc2 = model.downstream_head.pose_head.mlp.fc2
+        fc2.weight.mul_(0.01)
+        fc2.bias.copy_(torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]))
+    return model.eval()
+
+
+def small_mapping_agreement():
+    """One mapping event on the synthetic plane of tests/test_torch_mapping
+    .py, on the card (kernels) and on the CPU (plain blend): the segment
+    losses agree to 1e-2 relative (the event is chaotic at float-rounding
+    level; the CPU tests hold the plain path to the JAX package)."""
+    import torch
+    from cut3r_slam_tpu_torch.geometry.pointmap import depth_to_pointmap
+    from cut3r_slam_tpu_torch.geometry.lie import se3_exp, se3_matrix
+    from cut3r_slam_tpu_torch.slam.mapping import MappingBackend, \
+        MappingConfig
+    H = W = 32
+    K4 = np.array([40.0, 40.0, W / 2, H / 2], np.float32)
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    img = (np.stack([(np.sin(xx / 3.0) * 0.5 + 0.5),
+                     (np.cos(yy / 4.0) * 0.5 + 0.5),
+                     ((xx + yy) % 7) / 7.0], -1) * 255).astype(np.uint8)
+    depth = (2.0 + 0.2 * np.sin(xx / 5.0)).astype(np.float32)
+    pm = depth_to_pointmap(torch.tensor(depth), torch.tensor(K4)).numpy()
+    d2 = se3_matrix(se3_exp(torch.tensor(
+        [0.01, -0.01, 0.02, 0.01, 0.0, -0.01]))).numpy()
+    packet = {"viz_idx": [0, 1], "images": np.stack([img, img]),
+              "depths": np.stack([depth, depth]),
+              "pointmaps": np.stack([pm[::2, ::2]] * 2),
+              "confs": np.ones((2, H // 2, W // 2), np.float32),
+              "w2c": np.stack([np.eye(4, dtype=np.float32), d2]),
+              "submap_idx": 0}
+    cfg = MappingConfig(height=H, width=W, capacity=2048, cam_capacity=8,
+                        window_size=3, pose_refine_iters=4, opt_segment=2,
+                        window_opt_iters=4, new_view_opt_iters=2,
+                        gba_per_view=2, gba_segment=2, max_per_tile=256)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        be = MappingBackend(cfg, K4, device=dev)
+        gen = be.run_steps(dict(packet), 4)
+        ys = []
+        while True:
+            try:
+                ys.append(next(gen))
+            except StopIteration:
+                break
+        losses[dev] = [y for y in ys if isinstance(y, float)]
+    a, b = np.asarray(losses["cuda"]), np.asarray(losses["cpu"])
+    if a.shape != b.shape or not np.allclose(a, b, rtol=1e-2):
+        fail(f"small mapping event: cuda {a} vs cpu {b}")
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def kernel_phases(G, card):
+    """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
+    scene and at the mapping shape (V = 1 and 10, the median cotangent
+    nonzero), then their times at the mapping shape. Returns the V = 1
+    rows of the kernels line: name -> (ms, plain ms, bound, max |err|)."""
+    import torch
+    from cut3r_slam_tpu_torch.ops.gs_raster import RasterizeConfig
+    K4t = torch.tensor([40.0, 40.0, 16.0, 16.0], device="cuda")
+    small = RasterizeConfig(height=32, width=32, max_dup=16, max_per_tile=64)
+    A, ext = G.packed_entries(*small_scene(), K4t, small)
+    e1, fl, (O, d, md, T, tchk), flip = k1_errors(G, A, ext)
+    r2, _ = k2_errors(G, A, ext, tchk, T, cotangents(O, d, T), A.shape[0],
+                      flip)
+    log(f"[parity] 32x32 scene V=3: K1 max err {e1:.3e} (flip frac "
+        f"{fl:.1e}), K2 max err / max |ref| per channel "
+        f"{float(r2.max()):.3e} (channels 0-6: {float(r2[:7].max()):.3e})")
+
+    H, W, f = 384, 512, 400.0
+    cfg = RasterizeConfig(height=H, width=W, max_per_tile=512)
+    K4m = torch.tensor([f, f, W / 2, H / 2], device="cuda")
+    rows = {}
+    for V in (1, 10):
+        A, ext = G.packed_entries(*frustum_scene(2 ** 17, H, W, f, V, V),
+                                  K4m, cfg)
+        e1, fl, (O, d, md, T, tchk), flip = k1_errors(G, A, ext)
+        cots = cotangents(O, d, T)
+        r2, e2 = k2_errors(G, A, ext, tchk, T, cots, cfg.n_tiles, flip)
+        log(f"[parity] 512x384 P=2^17 V={V}: rows {A.shape[0]} mean extent "
+            f"{float(ext.float().mean()):.1f}; K1 max err {e1:.3e} (flip frac"
+            f" {fl:.1e}); K2 max err {e2:.3e}, max err / max |ref| per "
+            f"channel {float(r2.max()):.3e} (channels 0-6: "
+            f"{float(r2[:7].max()):.3e}; {int(flip.sum())} median-flip rows "
+            f"left out of channels 13-15)")
+        pairs = blend_census(A, ext)
+        t_f = cuda_ms(lambda: G.blend_forward(A, ext, True))
+        t_b = cuda_ms(lambda: G.blend_backward(A, ext, tchk, T, *cots))
+        b_f = bound_ms("gs_blend_fwd", A, ext, tchk, pairs)
+        b_b = bound_ms("gs_blend_bwd", A, ext, tchk, pairs)
+        parts = " / ".join(
+            f"{k} {b[2][0]:.4f}, {b[2][1]:.4f}, {b[2][2]:.4f}"
+            for k, b in (("K1", b_f), ("K2", b_b)))
+        log(f"[bound] V={V}: (rejected, stopping, blended) pairs {pairs}; "
+            f"bytes, FP32, MUFU ms: {parts}")
+        if V == 1:
+            p_f = cuda_ms(lambda: G.blend_forward_plain(A, ext, True), 3)
+            p_b = cuda_ms(lambda: G.blend_backward_plain(A, ext, *cots), 3)
+            rows["gs_blend_fwd"] = (t_f, p_f, b_f, e1)
+            rows["gs_blend_bwd"] = (t_b, p_b, b_b, e2)
+            log(f"[time] V=1: K1 {t_f:.4f} ms (plain {p_f:.3f}, bound "
+                f"{b_f[0]:.4f} by {b_f[1]}); K2 {t_b:.4f} ms (plain "
+                f"{p_b:.3f}, bound {b_b[0]:.4f} by {b_b[1]}) | {card}")
+        else:
+            log(f"[time] V=10: K1 {t_f:.4f} ms (bound {b_f[0]:.4f}); K2 "
+                f"{t_b:.4f} ms (bound {b_b[0]:.4f}) | {card}")
+        del A, ext, O, d, md, T, tchk, cots
+    return rows
+
+
+def main():
+    t_start = time.perf_counter()
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, ROOT)
+    try:
+        from cut3r_slam_tpu_torch import full_f32
+        from cut3r_slam_tpu_torch.kernels import build
+        from cut3r_slam_tpu_torch.ops import gs_raster_cuda as G
+        from cut3r_slam_tpu_torch.slam.system import SLAMSystem
+        from cut3r_slam_tpu_torch.utils.config import DEFAULT_CONFIG
+    except ImportError as e:
+        fail(f"the port is not importable from {ROOT}: {e}")
+    card = card_line()
+
+    # 1. environment --------------------------------------------------------
+    try:
+        nvcc = subprocess.run([build.nvcc_path(), "--version"],
+                              capture_output=True, text=True, timeout=60
+                              ).stdout.strip().splitlines()[-1]
+    except RuntimeError as e:
+        fail(str(e))
+    log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} | nvcc "
+        f"{nvcc} | {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()} | {card}")
+
+    # 2. build ---------------------------------------------------------------
+    secs = build.build_all()
+    log(f"[build] {len(build.SOURCES)} kernels in {secs:.2f} s")
+    for name, text in build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # 3.-4. kernel parity and times (f32 throughout, no TF32) -----------------
+    with full_f32():
+        rows = kernel_phases(G, card)
+
+    # 5. small-input agreement of a mapping event, card vs CPU --------------------
+    rel = small_mapping_agreement()
+    log(f"[check] 32x32 mapping event, cuda vs cpu: max rel loss diff "
+        f"{rel:.2e}")
+
+    # 6. the slice ----------------------------------------------------------------
+    H, W, f = 384, 512, 400.0
+    t0 = time.perf_counter()
+    model = plausible_random_cut3r(seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[slice] CUT3R {n_params / 1e6:.1f} M params (random, seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    slam_cfg = json.loads(json.dumps(DEFAULT_CONFIG))
+    slam_cfg["Tracking"]["motion_filter"]["kf_every"] = 2
+    # iteration counts cut to fit the time limit (widths are not cut)
+    slam_cfg["Mapping"].update({
+        "arena_capacity": 2 ** 17, "iterations": 20, "pose_refine_iters": 10,
+        "window_opt_iters": 10, "new_view_opt_iters": 10,
+        "gba_per_view": 2})
+    slam_cfg["opt_params"] = {"position_lr_max_steps": 50}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_",
+                               dir=os.path.join(ROOT, "build"))
+    slam = SLAMSystem(model, slam_cfg, buffer=64, img_hw=(H, W),
+                      output_dir=out_dir, device="cuda")
+    frames = synth_frames(24, H, W)
+    K4 = np.asarray([f, f, W / 2, H / 2], np.float32)
+    for k in G.LAUNCHES:
+        G.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    event_s = []
+    for t, img in enumerate(frames):
+        te = time.perf_counter()
+        _, viz = slam.run(t, img, K4, img_map=img, K4_map=K4,
+                          last=(t == len(frames) - 1))
+        if viz is not None:
+            torch.cuda.synchronize()
+            event_s.append(time.perf_counter() - te)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    slam.terminate(len(frames) - 1)
+    torch.cuda.synchronize()
+    term_s = time.perf_counter() - t1
+    launches = dict(G.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    kf = slam.keyframes
+    m = slam.mapper
+    alive = int(m.arena.alive.sum()) if m is not None else 0
+    if len(event_s) < 2:
+        fail(f"only {len(event_s)} mapping events ran")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was never launched on the main path: {launches}")
+    if not np.isfinite(kf.pose[:kf.count]).all() \
+            or not np.isfinite(kf.depth[:kf.count]).all():
+        fail("non-finite keyframe poses or depths")
+    if alive <= 0:
+        fail("no alive Gaussians after mapping")
+    live = m.arena.alive
+    for name in ("xyz", "f_dc", "opacity_logit", "log_scales", "quat"):
+        if not torch.isfinite(getattr(m.arena, name)[live]).all():
+            fail(f"non-finite Gaussian {name}")
+    if not torch.isfinite(m.cams.w2c).all():
+        fail("non-finite mapping poses")
+    if kf.pose.shape != (64, 7) or kf.depth.shape[1:] != (H, W):
+        fail("unexpected keyframe buffer shapes")
+    log(f"[slice] {len(frames)} frames, {kf.count} keyframes, "
+        f"{len(event_s)} mapping events, {alive} alive Gaussians, "
+        f"median depth {float(np.median(kf.depth[:kf.count])):.3f}")
+    log(f"[slice] {len(frames) / run_s:.3f} frames/s over run() "
+        f"({run_s:.1f} s), {np.mean(event_s):.2f} s per mapping-event frame "
+        f"({', '.join(f'{s:.2f}' for s in event_s)}), terminate "
+        f"{term_s:.1f} s, peak memory {peak_gb:.2f} GiB | {card}")
+    log(f"[slice] main-path launches: {launches}")
+
+    kernels = []
+    for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
+                           ("gs_blend_bwd", ":241 _blend_bwd_kernel")):
+        t_k, t_p, (b_ms, b_by, _), err = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"cut3r_slam_tpu_torch/csrc/{name}.cu",
+            "replaces": "cut3r_slam_tpu/ops/gs_raster_pallas.py" + replaces,
+            "launches": launches[name], "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

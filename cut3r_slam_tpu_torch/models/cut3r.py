@@ -1,0 +1,243 @@
+"""CUT3R — recurrent multi-view pointmap transformer, PyTorch (port of the
+inference path of ``cut3r_slam_tpu/models/cut3r.py`` that SLAM tracking
+uses: ``encode_image``, ``init_state``, ``LocalMemory``, ``decode_step`` and
+``decode_views`` with the self-pointmap + pose heads).
+
+Default config = the live checkpoint ``cut3r_512_dpt_4_64.pth`` (ViT-L/16
+encoder 1024 x 24, decoder 768 x 12, 768 register tokens, LocalMemory 256,
+RoPE base 100, DPT head). Module and parameter names follow the upstream
+``ARCroco3DStereo`` state_dict so its public checkpoint can load into this
+model; ``models/convert.params_from_jax`` maps the JAX model's flax params
+into the same names. The decoder runs the plain per-layer interleave of
+the state and image streams (the JAX ``fused_decoder`` is a TPU
+restructuring of the same math). The ray-map encoder and the cross / rgb
+heads are not on the tracking path and wait.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+import torch.nn as nn
+
+from .. import resolve_device
+from .blocks import Block, DecoderBlock, LayerNorm, Linear
+from .heads import DPTPts3dPose
+from .patch_embed import PatchEmbed
+
+__all__ = ["CUT3RConfig", "CUT3R", "LocalMemory", "normalize_images"]
+
+
+@dataclasses.dataclass(frozen=True)
+class CUT3RConfig:
+    enc_embed_dim: int = 1024
+    enc_depth: int = 24
+    enc_num_heads: int = 16
+    dec_embed_dim: int = 768
+    dec_depth: int = 12
+    dec_num_heads: int = 12
+    state_size: int = 768
+    state_dec_num_heads: int = 16
+    local_mem_size: int = 256
+    patch_size: int = 16
+    mlp_ratio: float = 4.0
+    rope_base: float = 100.0
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    @staticmethod
+    def tiny() -> "CUT3RConfig":
+        """A CPU-testable miniature with identical topology (f32)."""
+        return CUT3RConfig(
+            enc_embed_dim=64, enc_depth=2, enc_num_heads=2,
+            dec_embed_dim=48, dec_depth=4, dec_num_heads=2,
+            state_size=16, state_dec_num_heads=2, local_mem_size=8,
+            compute_dtype=torch.float32)
+
+
+def normalize_images(img_u8: torch.Tensor) -> torch.Tensor:
+    """uint8/float [0, 255] HWC -> [-1, 1]."""
+    return (img_u8.float() / 255.0 - 0.5) / 0.5
+
+
+def _state_positions(state_size: int, batch: int, device) -> torch.Tensor:
+    """2D positions of the register tokens (state_pe='2d')."""
+    width = int(state_size ** 0.5)
+    width = width + 1 if width % 2 == 1 else width
+    idx = torch.arange(state_size, device=device)
+    pos = torch.stack([torch.div(idx, width, rounding_mode="floor"),
+                       idx % width], -1)[None]
+    return pos.expand(batch, state_size, 2)
+
+
+class LocalMemory(nn.Module):
+    """Pose KV memory."""
+
+    def __init__(self, size, k_dim, v_dim, num_heads, depth=2,
+                 dtype=torch.float32):
+        super().__init__()
+        self.size, self.v_dim = size, v_dim
+        self.proj_q = Linear(k_dim, v_dim, dtype=dtype)
+        self.masked_token = nn.Parameter(torch.zeros(1, 1, v_dim))
+        self.mem = nn.Parameter(torch.zeros(1, size, 2 * v_dim))
+        self.write_blocks = nn.ModuleList([
+            DecoderBlock(2 * v_dim, num_heads, dtype=dtype)
+            for _ in range(depth)])
+        self.read_blocks = nn.ModuleList([
+            DecoderBlock(2 * v_dim, num_heads, dtype=dtype)
+            for _ in range(depth)])
+
+    def initial_mem(self, batch: int) -> torch.Tensor:
+        return self.mem.expand(batch, self.size, 2 * self.v_dim)
+
+    def update_mem(self, mem, feat_k, feat_v):
+        feat = torch.cat([self.proj_q(feat_k), feat_v], -1)
+        for blk in self.write_blocks:
+            mem, _ = blk(mem, feat, None, None)
+        return mem
+
+    def inquire(self, query, mem):
+        x = self.proj_q(query)
+        x = torch.cat([x, self.masked_token.expand(x.shape[0], 1,
+                                                   self.v_dim)], -1)
+        for blk in self.read_blocks:
+            x, _ = blk(x, mem, None, None)
+        return x[..., -self.v_dim:]
+
+
+class CUT3R(nn.Module):
+    def __init__(self, cfg: CUT3RConfig = CUT3RConfig(), device="cuda"):
+        super().__init__()
+        self.cfg = c = cfg
+        dt = c.compute_dtype
+        self.patch_embed = PatchEmbed(c.enc_embed_dim, c.patch_size, dtype=dt)
+        self.enc_blocks = nn.ModuleList([
+            Block(c.enc_embed_dim, c.enc_num_heads, c.mlp_ratio, True,
+                  c.rope_base, dt) for _ in range(c.enc_depth)])
+        self.enc_norm = LayerNorm(c.enc_embed_dim)
+        self.decoder_embed = Linear(c.enc_embed_dim, c.dec_embed_dim, dtype=dt)
+        self.decoder_embed_state = Linear(c.enc_embed_dim, c.dec_embed_dim,
+                                          dtype=dt)
+        self.dec_blocks = nn.ModuleList([
+            DecoderBlock(c.dec_embed_dim, c.dec_num_heads, c.mlp_ratio, True,
+                         c.rope_base, dt) for _ in range(c.dec_depth)])
+        self.dec_blocks_state = nn.ModuleList([
+            DecoderBlock(c.dec_embed_dim, c.state_dec_num_heads, c.mlp_ratio,
+                         True, c.rope_base, dt) for _ in range(c.dec_depth)])
+        self.dec_norm = LayerNorm(c.dec_embed_dim)
+        self.dec_norm_state = LayerNorm(c.dec_embed_dim)
+        self.register_tokens = nn.Embedding(c.state_size, c.enc_embed_dim)
+        self.pose_token = nn.Parameter(torch.zeros(1, 1, c.dec_embed_dim))
+        self.pose_retriever = LocalMemory(c.local_mem_size, c.enc_embed_dim,
+                                          c.dec_embed_dim, c.dec_num_heads,
+                                          dtype=dt)
+        self.downstream_head = DPTPts3dPose(c.enc_embed_dim, c.dec_embed_dim)
+        self.to(resolve_device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.pose_token.device
+
+    @torch.no_grad()
+    def init_random(self, generator: torch.Generator, std: float = 0.02):
+        """Random weights from ``generator``: normal(std) Linear/Embedding
+        weights and tokens, zero biases, unit LayerNorms, fan-in-scaled
+        convolutions."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            mod = self.get_submodule(name.rsplit(".", 1)[0]) \
+                if "." in name else self
+            if isinstance(mod, nn.LayerNorm):
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "bias":
+                p.zero_()
+            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                fan_in = p[0].numel() if isinstance(mod, nn.Conv2d) \
+                    else p.shape[0] * p.shape[2] * p.shape[3]
+                p.normal_(0.0, fan_in ** -0.5, generator=generator)
+            else:
+                p.normal_(0.0, std, generator=generator)
+
+    # ------------------------------------------------------------------
+    def encode_image(self, img: torch.Tensor) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+        """img (B, H, W, 3) normalized to [-1, 1] -> tokens (B, N, D) f32,
+        positions (B, N, 2)."""
+        x, pos = self.patch_embed(img)
+        for blk in self.enc_blocks:
+            x = blk(x, pos)
+        return self.enc_norm(x), pos
+
+    def init_state(self, batch: int):
+        """(state_feat (B, S, dec) f32, state_pos (B, S, 2), mem f32)."""
+        c = self.cfg
+        reg = self.register_tokens.weight
+        state_feat = self.decoder_embed_state(
+            reg[None].expand(batch, c.state_size, c.enc_embed_dim))
+        return (state_feat.float(),
+                _state_positions(c.state_size, batch, self.device),
+                self.pose_retriever.initial_mem(batch).float())
+
+    def decode_step(self, state_feat, state_pos, mem, feat_i, pos_i,
+                    is_first: bool):
+        """One view through the interleaved decoder. feat_i (B, N, enc).
+        Returns (state_feat', mem', hook_list)."""
+        c = self.cfg
+        B = feat_i.shape[0]
+        global_feat = feat_i.mean(1, keepdim=True)
+        if is_first:
+            pose_feat = self.pose_token.expand(B, 1, c.dec_embed_dim)
+        else:
+            pose_feat = self.pose_retriever.inquire(global_feat, mem)
+        pose_pos = -torch.ones(B, 1, 2, dtype=pos_i.dtype, device=pos_i.device)
+        f_img = self.decoder_embed(feat_i)
+        f_img = torch.cat([pose_feat.to(f_img.dtype), f_img], 1)
+        pos_img = torch.cat([pose_pos, pos_i], 1)
+
+        hooks = {0: feat_i.float()}
+        f_state = state_feat
+        for layer, (blk_state, blk_img) in enumerate(
+                zip(self.dec_blocks_state, self.dec_blocks), start=1):
+            f_state_new, _ = blk_state(f_state, f_img, state_pos, pos_img)
+            f_img_new, _ = blk_img(f_img, f_state, pos_img, state_pos)
+            f_state, f_img = f_state_new, f_img_new
+            if layer in (c.dec_depth * 2 // 4, c.dec_depth * 3 // 4):
+                hooks[layer] = f_img[:, 1:].float()
+        f_state = self.dec_norm_state(f_state)
+        f_img = self.dec_norm(f_img)
+        hooks[c.dec_depth] = f_img
+        new_mem = self.pose_retriever.update_mem(mem.to(global_feat.dtype),
+                                                 global_feat, f_img[:, 0:1])
+        hook_list = [hooks[0], hooks[c.dec_depth * 2 // 4],
+                     hooks[c.dec_depth * 3 // 4], hooks[c.dec_depth]]
+        return f_state.float(), new_mem.float(), hook_list
+
+    def decode_views(self, feat: torch.Tensor, pos: torch.Tensor, H: int,
+                     W: int, carry=None, chunk_start: int = 0,
+                     head_outputs=("self", "pose")):
+        """Decoder-only pass over precomputed encoder tokens.
+        feat (V, B, N, enc_dim); pos (V, B, N, 2). Returns (out dict of
+        (V, B, ...) tensors, (state_feat, mem))."""
+        V, B, N = feat.shape[:3]
+        init_state, state_pos, init_mem = self.init_state(B)
+        state_feat, mem = (init_state, init_mem) if carry is None else carry
+        hooks = []
+        for v in range(V):
+            state_feat, mem, hl = self.decode_step(
+                state_feat, state_pos, mem, feat[v], pos[v],
+                (chunk_start + v) == 0)
+            hooks.append(hl)
+        stacked = [torch.cat([h[k] for h in hooks], 0) for k in range(4)]
+        out = self.downstream_head(stacked, H, W, outputs=head_outputs)
+        out = {k: x.reshape((V, B) + x.shape[1:]) for k, x in out.items()}
+        return out, (state_feat, mem)
+
+    def forward(self, imgs: torch.Tensor, head_outputs=("self", "pose")
+                ) -> Dict[str, torch.Tensor]:
+        """imgs (V, B, H, W, 3) in [-1, 1] -> dict of (V, B, ...) outputs."""
+        V, B, H, W, _ = imgs.shape
+        feat, pos = self.encode_image(imgs.reshape(V * B, H, W, 3))
+        out, _ = self.decode_views(feat.reshape(V, B, *feat.shape[1:]),
+                                   pos.reshape(V, B, *pos.shape[1:]), H, W,
+                                   head_outputs=head_outputs)
+        return out
