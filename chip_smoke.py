@@ -7,9 +7,10 @@ Phases (any failure exits nonzero, and no result line is printed):
    limit;
 2. build: nvcc builds every kernel source of the checkout (in parallel);
 3. kernel parity: the tile-blend forward (K1) and backward (K2) kernels
-   against their plain PyTorch versions, on the 32x32 test scene and at
-   the mapping shape (512x384, 2^17 Gaussians, max_per_tile 512) in the
-   single-view and the V=10 multi-view form;
+   against their plain PyTorch versions, on the 32x32 test scene, on a
+   staging-edge scene (staging_scene: ragged extents, pixels stopping
+   inside a stage) and at the mapping shape (512x384, 2^17 Gaussians,
+   max_per_tile 512) in the single-view and the V=10 multi-view form;
 4. kernel times at the mapping shape (CUDA events), beside the plain
    versions and the bound the card could reach;
 5. small-input agreement: one mapping event on the synthetic plane of
@@ -152,6 +153,42 @@ def small_scene():
     arrs[0] = torch.stack([arrs[0] + v * shift for v in range(3)])
     arrs[1] = torch.stack([arrs[1]] * 3)
     return arrs
+
+
+# (extent, opacity range) per row of staging_scene; K = 200 is a multiple
+# of no staging size (32-entry chunks, 128-entry K1 stages)
+STAGING_ROWS = ((0, (0.1, 0.5)), (1, (0.3, 0.9)), (31, (0.1, 0.6)),
+                (33, (0.1, 0.6)), (200, (0.02, 0.15)),  # never stops
+                (200, None),                            # every entry rejected
+                (200, (0.2, 0.7)),      # pixels stop inside the first stage
+                (97, (0.8, 0.99)),      # every pixel stops: early exit
+                (200, (0.16, 0.45)))    # stops around the stage boundary
+
+
+def staging_scene(seed=0, K=200):
+    """Packed entries (numpy f32 (R, K, 16), extent int32 (R,)) built to
+    break larger stages: ragged extents 0, 1, 31, 33, 97 and K in one
+    launch, pixels that stop in the middle of a stage, and a row whose
+    entries are all rejected. Each entry is a 2D Gaussian in tile pixels,
+    packed as ops/gs_raster_cuda._assemble_A packs one."""
+    rng = np.random.default_rng(seed)
+    R = len(STAGING_ROWS)
+    mx = rng.uniform(-6.0, 22.0, (R, K))
+    my = rng.uniform(-6.0, 22.0, (R, K))
+    s0, s1 = rng.uniform(2.0, 9.0, (2, R, K))
+    rho = rng.uniform(-0.5, 0.5, (R, K))
+    c0, c2, c1 = 1.0 / s0 ** 2, 1.0 / s1 ** 2, rho / (s0 * s1)
+    opa = np.stack([rng.uniform(*o, K) if o else np.full(K, 1e-13)
+                    for _, o in STAGING_ROWS])
+    q0 = -0.5 * (c0 * mx * mx + c2 * my * my) - c1 * mx * my + np.log(opa)
+    t0 = np.sort(rng.uniform(1.0, 3.0, (R, K)), 1)
+    rp = rng.uniform(-0.01, 0.01, (2, R, K))
+    A = np.stack([*rng.uniform(0.0, 1.0, (6, R, K)), np.ones((R, K)),
+                  q0, c0 * mx + c1 * my, c2 * my + c1 * mx, -0.5 * c0,
+                  -0.5 * c2, -c1, t0 + rp[0] * mx + rp[1] * my, -rp[0],
+                  -rp[1]], -1)
+    ext = np.asarray([e for e, _ in STAGING_ROWS], np.int32)
+    return A.astype(np.float32), ext
 
 
 # ---------------------------------------------------------------------------
@@ -345,9 +382,10 @@ def small_mapping_agreement():
 
 def kernel_phases(G, card):
     """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
-    scene and at the mapping shape (V = 1 and 10, the median cotangent
-    nonzero), then their times at the mapping shape. Returns the V = 1
-    rows of the kernels line: name -> (ms, plain ms, bound, max |err|)."""
+    scene, the staging-edge scene and at the mapping shape (V = 1 and 10,
+    the median cotangent nonzero), then their times at the mapping shape.
+    Returns the V = 1 rows of the kernels line: name -> (ms, plain ms,
+    bound, max |err|)."""
     import torch
     from cut3r_slam_tpu_torch.ops.gs_raster import RasterizeConfig
     K4t = torch.tensor([40.0, 40.0, 16.0, 16.0], device="cuda")
@@ -359,6 +397,14 @@ def kernel_phases(G, card):
     log(f"[parity] 32x32 scene V=3: K1 max err {e1:.3e} (flip frac "
         f"{fl:.1e}), K2 max err / max |ref| per channel "
         f"{float(r2.max()):.3e} (channels 0-6: {float(r2[:7].max()):.3e})")
+    A, ext = (torch.tensor(a, device="cuda") for a in staging_scene())
+    e1, fl, (O, d, md, T, tchk), flip = k1_errors(G, A, ext)
+    r2, _ = k2_errors(G, A, ext, tchk, T, cotangents(O, d, T), A.shape[0],
+                      flip)
+    log(f"[parity] staging-edge scene K={A.shape[1]} extents "
+        f"{ext.tolist()}: K1 max err {e1:.3e} (flip frac {fl:.1e}), K2 max "
+        f"err / max |ref| per channel {float(r2.max()):.3e} (channels 0-6: "
+        f"{float(r2[:7].max()):.3e})")
 
     H, W, f = 384, 512, 400.0
     cfg = RasterizeConfig(height=H, width=W, max_per_tile=512)

@@ -72,9 +72,14 @@ def _lib_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile one source (no-op when its hashed library exists)."""
+    """Compile one source (no-op when its hashed library exists). nvcc's
+    report is kept beside the library, so ``BUILD_LOG`` holds it either
+    way."""
     out = _lib_path(name)
+    report = out.with_suffix(".log")
     if out.exists():
+        if report.exists():
+            BUILD_LOG[name] = report.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
@@ -85,6 +90,7 @@ def build(name: str) -> Path:
     if p.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} (rc {p.returncode}):\n"
                            f"{' '.join(cmd)}\n{p.stdout}\n{p.stderr}")
+    report.write_text(BUILD_LOG[name])
     os.replace(tmp, out)
     return out
 

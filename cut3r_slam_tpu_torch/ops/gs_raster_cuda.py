@@ -67,6 +67,13 @@ def _check(name, t, dtype, ndim):
                          f"{t.device} (contiguous={t.is_contiguous()})")
 
 
+def _check_aligned(name, t):
+    """The kernels stage packed entries with 16-byte asynchronous copies."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned (a view at "
+                         f"storage offset {t.storage_offset()})")
+
+
 def _stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -143,6 +150,7 @@ def blend_forward(A, extent, with_residuals: bool = False):
     R, K, nch = A.shape
     if nch != NCH or extent.shape[0] != R:
         raise ValueError(f"A {tuple(A.shape)} / extent {tuple(extent.shape)}")
+    _check_aligned("A", A)
     from ..kernels import load
     lib = load("gs_blend_fwd")
     nC = _n_chunks(K)
@@ -197,6 +205,7 @@ def blend_backward(A, extent, tchk, tleft, gO, gd, gmd, gT):
     nC = _n_chunks(K)
     if tchk.shape != (R, nC, PX) or gO.shape != (R, PX, NOUT):
         raise ValueError(f"tchk {tuple(tchk.shape)} / gO {tuple(gO.shape)}")
+    _check_aligned("A", A)
     from ..kernels import load
     lib = load("gs_blend_bwd")
     dA = torch.empty_like(A)

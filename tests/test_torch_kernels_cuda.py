@@ -57,9 +57,25 @@ def _on(arrs, device, grad=False):
     return [torch.tensor(a, device=device, requires_grad=grad) for a in arrs]
 
 
-def test_forward_kernel_matches_plain(cuda):
-    A, ext = G.packed_entries(*_on(_scene(), cuda),
-                              torch.tensor(K4, device=cuda), CFG)
+def _packed(scene, device):
+    """The kernels' inputs (A, extent) on ``device``: the random 32x32
+    scene packed by the renderer, or chip_smoke.staging_scene (K = 200,
+    extents 0, 1, 31, 33, 97 and 200 in one launch, pixels stopping inside
+    a 128-entry stage and across its end, a row of rejected entries)."""
+    if scene == "small":
+        return G.packed_entries(*_on(_scene(), device),
+                                torch.tensor(K4, device=device), CFG)
+    from chip_smoke import staging_scene
+    A, ext = staging_scene()
+    return torch.tensor(A, device=device), torch.tensor(ext, device=device)
+
+
+SCENES = ["small", "staging"]
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_forward_kernel_matches_plain(cuda, scene):
+    A, ext = _packed(scene, cuda)
     before = G.LAUNCHES["gs_blend_fwd"]
     (O, d, md, T), tchk = G.blend_forward(A, ext, with_residuals=True)
     assert G.LAUNCHES["gs_blend_fwd"] == before + 1
@@ -71,10 +87,10 @@ def test_forward_kernel_matches_plain(cuda):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("scene", SCENES)
 @pytest.mark.parametrize("median_cotangent", [False, True])
-def test_backward_kernel_matches_plain_vjp(cuda, median_cotangent):
-    A, ext = G.packed_entries(*_on(_scene(), cuda),
-                              torch.tensor(K4, device=cuda), CFG)
+def test_backward_kernel_matches_plain_vjp(cuda, median_cotangent, scene):
+    A, ext = _packed(scene, cuda)
     (O, d, md, T), tchk = G.blend_forward(A, ext, with_residuals=True)
     g = torch.Generator(device=cuda).manual_seed(0)
     cots = [torch.randn(x.shape, generator=g, device=cuda)
@@ -119,3 +135,7 @@ def test_wrappers_refuse_bad_inputs(cuda):
         G.blend_forward(A.transpose(1, 2), ext)
     with pytest.raises(ValueError):
         G.blend_forward(A, ext.long())
+    shifted = torch.empty(A.numel() + 1, device=cuda)[1:].view(A.shape)
+    shifted.copy_(A)                  # contiguous, 4 bytes off alignment
+    with pytest.raises(ValueError):
+        G.blend_forward(shifted, ext)
