@@ -15,10 +15,27 @@ Phases (any failure exits nonzero, and no result line is printed):
    versions and the bound the card could reach;
 5. small-input agreement: one mapping event on the synthetic plane of
    tests/test_torch_mapping.py on the card vs on the CPU;
-6. the slice: SLAMSystem.run over 384x512 synthetic frames with the
-   full-width CUT3R (random weights from a seed) and Gaussian mapping,
-   two mapping events, then terminate; both kernels' launch counters
-   must rise in this run;
+5b. loop-closure solvers, card vs CPU: pgo_align, pgo_align_multi and
+   sim3_pgo_solve on the same small seeded inputs (max |card - cpu| /
+   max |cpu| below 1e-4: both run f32 in another summation order, where
+   TF32 products would differ by ~5e-4 and a scatter that dropped
+   duplicate edges by far more);
+6. the live slice: SLAMSystem.run over 384x512 synthetic frames with the
+   full-width CUT3R (random weights from a seed), loop closure on (the
+   JAX package's default; whether a closure fires on random weights is
+   printed, not required) and Gaussian mapping, at least two mapping
+   events, then terminate; both kernels' launch counters must rise;
+7. the loop-closure path at full width: SLAMSystem.run_test (ground-truth
+   depth and poses injected in place of the submap decode, relative
+   poses perturbed) on an out-and-back trajectory over a textured plane
+   at 384x512 with the full-width CUT3R in the motion filter, mapping on,
+   the Sim(3) PGBA on and 2000-step PGOs; then one more closure called
+   directly, so the repeat-closure PGO (pgo_align_multi) runs at full
+   width. It fails unless a closure fired, the seam error and the loop
+   error fell across it (mapping moves the keyframe poses that anchor
+   the next submap, so the seams are open before the closure), the corrected
+   submaps' Gaussians moved, K1 and K2 launched inside gaussian_update,
+   and the PGBA scales, poses, depths and Gaussians are finite;
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -313,6 +330,13 @@ def bound_ms(name, A, ext, tchk, pairs):
 # the slice
 # ---------------------------------------------------------------------------
 
+# iteration counts of the slice runs (phases 6 and 7), cut to fit the time
+# limit; widths are not cut
+SLICE_MAPPING_CUTS = {
+    "arena_capacity": 2 ** 17, "iterations": 20, "pose_refine_iters": 10,
+    "window_opt_iters": 10, "new_view_opt_iters": 10, "gba_per_view": 2}
+
+
 def plausible_random_cut3r(seed):
     """Full-width CUT3R with random weights from a seeded generator. The
     self-pointmap head's last conv is scaled down and biased to (0, 0, 1)
@@ -378,6 +402,330 @@ def small_mapping_agreement():
     if a.shape != b.shape or not np.allclose(a, b, rtol=1e-2):
         fail(f"small mapping event: cuda {a} vs cpu {b}")
     return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def drift_chain(B, seed, h=24, w=32, scale=0.03):
+    """B submaps (B, 6, h, w, 3) of one surface (a plane at z = 2 with a
+    sinusoidal relief) under accumulating SE(3) drift (the first
+    undrifted), the surface itself and all-ones seam confidences."""
+    import torch
+    from cut3r_slam_tpu_torch.geometry.lie import se3_exp, se3_matrix
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.linspace(-0.6, 0.6, h), np.linspace(-1, 1, w),
+                         indexing="ij")
+    z = 2.0 + 0.5 * np.sin(3 * xs) * np.cos(2 * ys)   # relief
+    plane = np.stack([xs, ys, z], -1).astype(np.float32)
+    acc, pts = np.eye(4, dtype=np.float32), [plane]
+    for _ in range(B - 1):
+        xi = np.concatenate([rng.normal(size=3) * scale,
+                             rng.normal(size=3) * scale * 0.5])
+        acc = se3_matrix(se3_exp(torch.tensor(xi, dtype=torch.float32))) \
+            .numpy() @ acc
+        pts.append(plane @ acc[:3, :3].T + acc[:3, 3])
+    sub = np.stack([np.broadcast_to(p, (6, h, w, 3)) for p in pts])
+    return sub.astype(np.float32), plane, np.ones((B, h, w), np.float32)
+
+
+def loop_solvers_card_vs_cpu():
+    """Phase 5b: the loop-closure solvers on the card and on the CPU from
+    the same seeded inputs. Compared as max |card - cpu| / max |cpu|, each
+    below 1e-4: both PGO objectives and their gradients at a seeded
+    correction (four drifted submaps, two loops), the points moved by
+    ``apply_pgo``, 10 steps of ``pgo_align`` and of ``pgo_align_multi`` on
+    two submaps (a chain whose every correction has a gradient well above
+    Adam's eps in those steps), and the step of four ``sim3_pgo_solve``
+    iterations on a graph with a repeated edge and two zero-weight (0, 0)
+    self-loops. The LC-cloud transforms of ``pgo_align_multi`` include a
+    component whose gradient sits near Adam's eps (1e-6 input noise moves
+    it by 1.5% of a step on the CPU): they are held to a tenth of a step
+    (5e-5) instead. Returns name -> measured difference."""
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.geometry.lie import sim3_exp, sim3_inv, \
+        sim3_mul
+    from cut3r_slam_tpu_torch.slam import backend as BK
+    from cut3r_slam_tpu_torch.slam.sim3_pgo import sim3_pgo_solve
+    sub4, plane, conf4 = drift_chain(4, seed=0)
+    sub2, _, conf2 = drift_chain(2, seed=0, scale=0.05)
+    lc_chain, _, _ = drift_chain(5, seed=3, scale=0.05)
+    lc = np.stack([lc_chain[1:3, 0], lc_chain[3:5, 0]])   # 2 loops' clouds
+    rng = np.random.default_rng(1)
+    xi_at = rng.normal(0, 0.02, (3, 6)).astype(np.float32)
+    xl_at = rng.normal(0, 0.02, (2, 6)).astype(np.float32)
+    xi = rng.normal(size=(6, 7)).astype(np.float32) * 0.3
+    xi[:, 6] *= 0.2
+    xi[0] = 0.0
+    g = sim3_exp(torch.tensor(xi))
+    gt = sim3_exp(torch.tensor(xi * 0.9))
+    ii = torch.tensor([0, 1, 2, 3, 4, 0, 1, 1, 1, 0, 0, 2])
+    jj = torch.tensor([1, 2, 3, 4, 5, 5, 2, 3, 3, 0, 0, 4])
+    rel = sim3_mul(sim3_inv(gt[ii]), gt[jj])
+    rel[9:11] = torch.tensor([0, 0, 0, 0, 0, 0, 1, 1.0])
+    w = torch.tensor([1, 1, 1, 1, 1, 2, .5, .5, .7, 0, 0, 1.0])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        def t(x):
+            return torch.as_tensor(x).to(dev)
+        r = {}
+        with full_f32():
+            seam = BK._seam_terms(t(sub4), t(conf4))
+            x = t(xi_at).requires_grad_(True)
+            loss = BK._align_loss(x, *seam, t(sub4[3, 0]).reshape(-1, 3),
+                                  t(plane).reshape(-1, 3))
+            r["pgo_align objective"] = loss.detach()
+            r["pgo_align gradient"] = torch.autograd.grad(loss, x)[0]
+            xs = (t(xi_at).requires_grad_(True),
+                  t(xl_at).requires_grad_(True))
+            loss = BK._multi_loss(*xs, *seam, t(lc[:, 0]).reshape(2, -1, 3),
+                                  t(lc[:, 1]).reshape(2, -1, 3),
+                                  t(sub4[2:4, 0]).reshape(2, -1, 3),
+                                  t(np.array([2, 3])), t(np.array([0, 0])))
+            r["pgo_align_multi objective"] = loss.detach()
+            r["pgo_align_multi gradient"] = torch.cat(
+                torch.autograd.grad(loss, xs))
+        r["apply_pgo points"] = BK.apply_pgo(
+            t(sub4), torch.cat([torch.zeros(1, 6, device=dev), t(xi_at)]))[0]
+        r["pgo_align"] = BK.pgo_align(t(sub2), t(conf2), t(sub2[1, 0]),
+                                      t(plane), iters=10)
+        xm, xl = BK.pgo_align_multi(t(sub2), t(conf2), t(lc),
+                                    t(sub2[[1, 1], 0]), t(np.array([1, 1])),
+                                    t(np.array([0, 0])), iters=10)
+        r["pgo_align_multi"], r["pgo_align_multi LC transforms"] = xm, xl
+        r["sim3_pgo_solve step"] = sim3_pgo_solve(
+            t(g), t(ii), t(jj), t(rel), t(w), iters=4) - t(g)
+        out[dev] = r
+    diffs = {}
+    for k, ref in out["cpu"].items():
+        err = float((out["cuda"][k].cpu() - ref).abs().max())
+        if k.endswith("LC transforms"):
+            diffs[k] = err
+            if not err < 5e-5:
+                fail(f"{k}: card vs cpu max abs diff {err:.3e} >= 5e-5")
+            continue
+        diffs[k] = err / float(ref.abs().max())
+        if not diffs[k] < 1e-4:
+            fail(f"{k}: card vs cpu max rel diff {diffs[k]:.3e} >= 1e-4")
+    return diffs
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the loop-closure path
+# ---------------------------------------------------------------------------
+
+LC_H, LC_W, LC_F, LC_FRAMES, LC_STEP = 384, 512, 400.0, 40, 0.25
+
+
+def gt_plane_frames(n=LC_FRAMES, step=LC_STEP, seed=3):
+    """Ground truth of an out-and-back trajectory over a textured plane at
+    z = 2 (the scene of tests/test_e2e_gt_loop.py at 384x512, f = 400):
+    the camera slides along x by ``step`` per frame for n/2 frames and
+    back. Returns [(image u8, depth, c2w)] and K4. At 0.25 m per frame
+    the view shifts by 0.39 of its width per metre, so keyframes more than
+    8 apart never overlap by the factor graph's 0.3 on the way out and the
+    loop closes on the way back, after two submaps have been mapped."""
+    H, W, f = LC_H, LC_W, LC_F
+    rng = np.random.default_rng(seed)
+    tex = rng.uniform(40, 215, (256, 512, 3)).astype(np.float32)
+    for _ in range(3):
+        tex = (tex + np.roll(tex, 1, 0) + np.roll(tex, -1, 0)
+               + np.roll(tex, 1, 1) + np.roll(tex, -1, 1)) / 5.0
+    half = n // 2
+    txs = [step * t for t in range(half)]
+    txs += [txs[-1] - step * (t + 1) for t in range(n - half)]
+    K4 = np.asarray([f, f, W / 2, H / 2], np.float32)
+    u, v = np.meshgrid(np.arange(W), np.arange(H))
+    out = []
+    for tx in txs:
+        x = (u - K4[2]) / f * 2.0 + tx
+        y = (v - K4[3]) / f * 2.0
+        ti = ((x + 2.0) * 50).astype(int) % 512      # 50 texels per metre
+        tj = ((y + 2.0) * 50).astype(int) % 256
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[0, 3] = tx
+        out.append((tex[tj, ti].astype(np.uint8),
+                    np.full((H, W), 2.0, np.float32), c2w))
+    return out, K4
+
+
+def kf_ate(kf, gt_c2w):
+    """Keyframe translation RMSE after removing the mean offset (the gauge
+    alignment of tests/test_e2e_gt_loop.py)."""
+    err = np.stack([kf.pose[i, :3] - gt_c2w[int(kf.tstamp[i])][:3, 3]
+                    for i in range(kf.count)])
+    err -= err.mean(0)
+    return float(np.sqrt((err ** 2).sum(1).mean()))
+
+
+def _wrap(obj, name, around):
+    """Replace ``obj.name`` by around(original, *args) for this run."""
+    orig = getattr(obj, name)
+    setattr(obj, name, lambda *a, **k: around(orig, *a, **k))
+
+
+def synced(fn, *a, **k):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def loop_closure_phase(model, G, card):
+    """Phase 7 (see the module docstring). Returns the launch counts of
+    its run."""
+    import torch
+    from cut3r_slam_tpu_torch.slam import backend as BK
+    from cut3r_slam_tpu_torch.slam.keyframe import SUBMAP_SIZE
+    from cut3r_slam_tpu_torch.slam.mapping import MappingBackend
+    from cut3r_slam_tpu_torch.slam.sim3_pgo import PGBABuffer
+    from cut3r_slam_tpu_torch.slam.system import SLAMSystem
+    from cut3r_slam_tpu_torch.utils.config import DEFAULT_CONFIG
+    frames, K4 = gt_plane_frames()
+    gt = {t: c2w for t, (_, _, c2w) in enumerate(frames)}
+    cfg = json.loads(json.dumps(DEFAULT_CONFIG))
+    cfg["Tracking"]["motion_filter"]["kf_every"] = 2
+    cfg["Tracking"]["backend"]["loop_iters"] = 2000
+    cfg["Tracking"]["pgba"] = {"active": True}
+    cfg["Mapping"].update(SLICE_MAPPING_CUTS)
+    cfg["keep_all_frames"] = False
+    slam = SLAMSystem(model, cfg, buffer=64, img_hw=(LC_H, LC_W),
+                      output_dir=os.path.join(ROOT, "build", "chip_smoke_lc"),
+                      device="cuda")
+    kf = slam.keyframes
+    rec = {"lc_track": [], "pgo_align": [], "pgo_align_multi": [],
+           "closure": [], "gaussian_update": [], "pgba": []}
+
+    def seam(B):
+        p = kf.submap_pts[:B]
+        return float((p[:B - 1, -1] - p[1:B, 0]).abs().mean())
+
+    def timed(key):
+        def around(orig, *a, **k):
+            out, sec = synced(orig, *a, **k)
+            rec[key].append(sec)
+            return out
+        return around
+
+    def closure(orig, matched, current):
+        b, sl = divmod(current, SUBMAP_SIZE)
+        cur0 = kf.submap_pts[b, sl].clone()
+        seam0, ate0 = seam(b + 1), kf_ate(kf, gt)
+        out, sec = synced(orig, matched, current)
+        lc = slam.backend.closed_loop["lc_fl"][-1][1]
+        rec["closure"].append({
+            "matched": matched, "current": current, "s": sec,
+            "seam": (seam0, seam(b + 1)),
+            "loop": (float((cur0 - lc).abs().mean()),
+                     float((kf.submap_pts[b, sl] - lc).abs().mean())),
+            "ate": (ate0, kf_ate(kf, gt))})
+        return out
+
+    def gaussian_update(orig, mapper, submap_ids, pose_updates, *a):
+        ar = mapper.arena
+        ids = torch.as_tensor(np.asarray(submap_ids)[1:], device=ar.xyz.device)
+        rows = ar.alive & (ar.kf_id[:, None] == ids[None]).any(-1)
+        xyz0 = ar.xyz[rows].clone()
+        l0 = dict(G.LAUNCHES)
+        _, sec = synced(orig, mapper, submap_ids, pose_updates, *a)
+        rec["gaussian_update"].append({
+            "s": sec, "moved": int(rows.sum()),
+            "max_move": float((ar.xyz[rows] - xyz0).abs().max())
+            if int(rows.sum()) else 0.0,
+            "launches": {k: G.LAUNCHES[k] - l0[k] for k in l0}})
+
+    _wrap(slam.backend, "lc_track", timed("lc_track"))
+    _wrap(slam.backend, "loop_closure", closure)
+    saved = [(BK, "pgo_align"), (BK, "pgo_align_multi"),
+             (MappingBackend, "gaussian_update"),
+             (PGBABuffer, "solve_and_writeback")]
+    saved = [(o, n, getattr(o, n)) for o, n in saved]
+    _wrap(BK, "pgo_align", timed("pgo_align"))
+    _wrap(BK, "pgo_align_multi", timed("pgo_align_multi"))
+    orig_gu, orig_pgba = saved[2][2], saved[3][2]
+    MappingBackend.gaussian_update = \
+        lambda self, *a: gaussian_update(orig_gu, self, *a)
+    PGBABuffer.solve_and_writeback = lambda self, k: rec["pgba"].append(
+        synced(orig_pgba, self, k)) or rec["pgba"][-1][0]
+    try:
+        for k in G.LAUNCHES:
+            G.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for t, (img, depth, c2w) in enumerate(frames):
+            slam.run_test(t, img, K4, depth, c2w, img_map=img, K4_map=K4,
+                          second_last=(t == len(frames) - 2),
+                          last=(t == len(frames) - 1), sigma_t=0.02,
+                          sigma_r=0.004)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(G.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not rec["closure"]:
+            fail("phase 7: no loop closure fired")
+        # a repeat closure at full width: the multi-loop PGO
+        last = rec["closure"][-1]
+        slam.backend.loop_closure(last["matched"], slam.frontend.t1 - 2)
+    finally:
+        for o, n, f in saved:
+            setattr(o, n, f)
+
+    for c in rec["closure"]:
+        s0, s1 = c["seam"]
+        l0, l1 = c["loop"]
+        log(f"[loop] closure {c['matched']} <- {c['current']}: seam error "
+            f"{s0:.5f} -> {s1:.5f}, loop error {l0:.5f} -> {l1:.5f}, "
+            f"keyframe ATE {c['ate'][0]:.5f} -> {c['ate'][1]:.5f} m, "
+            f"{c['s']:.2f} s | {card}")
+    for c in rec["closure"][:-1]:        # closures of the run_test drive
+        (s0, s1), (l0, l1) = c["seam"], c["loop"]
+        if not (s1 < s0 and l1 < l0):
+            fail(f"phase 7: the seam or the loop error did not fall across "
+                 f"the closure: seam {s0} -> {s1}, loop {l0} -> {l1}")
+    if not rec["pgo_align_multi"]:
+        fail("phase 7: the repeat closure did not run pgo_align_multi")
+    if not rec["gaussian_update"]:
+        fail("phase 7: gaussian_update never ran")
+    for gu in rec["gaussian_update"]:
+        if gu["moved"] <= 0 or not gu["max_move"] > 0:
+            fail(f"phase 7: no Gaussian of a corrected submap moved: {gu}")
+        if min(gu["launches"].values()) <= 0:
+            fail(f"phase 7: a kernel did not launch inside gaussian_update: "
+                 f"{gu['launches']}")
+    if not rec["pgba"]:
+        fail("phase 7: the PGBA never solved")
+    for g, _ in rec["pgba"]:
+        if not (np.isfinite(g).all() and (g[:, 7] > 0).all()):
+            fail("phase 7: non-finite PGBA poses or scales")
+    m = slam.mapper
+    live = m.arena.alive
+    if not (np.isfinite(kf.pose[:kf.count]).all()
+            and np.isfinite(kf.depth[:kf.count]).all()
+            and torch.isfinite(kf.submap_pts).all()
+            and torch.isfinite(m.cams.w2c).all()
+            and all(torch.isfinite(getattr(m.arena, k)[live]).all()
+                    for k in ("xyz", "f_dc", "opacity_logit", "log_scales",
+                              "quat"))):
+        fail("phase 7: non-finite poses, depths, pointmaps or Gaussians")
+    if min(launches.values()) <= 0:
+        fail(f"phase 7: a kernel was never launched: {launches}")
+    gu = rec["gaussian_update"]
+    log(f"[loop] {len(frames)} frames, {kf.count} keyframes, "
+        f"{len(rec['closure']) - 1} closure(s) in run_test + 1 direct; "
+        f"final keyframe ATE {kf_ate(kf, gt):.5f} m; "
+        f"{LC_FRAMES / run_s:.3f} frames/s over run_test ({run_s:.1f} s), "
+        f"peak memory {peak_gb:.2f} GiB | {card}")
+    log(f"[loop] seconds: lc_track {rec['lc_track']}, pgo_align "
+        f"{rec['pgo_align']}, pgo_align_multi {rec['pgo_align_multi']}, "
+        f"gaussian_update {[g['s'] for g in gu]}, PGBA solve "
+        f"{[s for _, s in rec['pgba']]} | {card}")
+    log(f"[loop] gaussian_update: {[g['moved'] for g in gu]} Gaussians "
+        f"moved (max {[round(g['max_move'], 5) for g in gu]} m), launches "
+        f"inside {[g['launches'] for g in gu]}; PGBA scales "
+        f"{[(float(g[:, 7].min()), float(g[:, 7].max())) for g, _ in rec['pgba']]}")
+    log(f"[loop] main-path launches: {launches}")
+    return launches
 
 
 def kernel_phases(G, card):
@@ -493,6 +841,10 @@ def main():
     rel = small_mapping_agreement()
     log(f"[check] 32x32 mapping event, cuda vs cpu: max rel loss diff "
         f"{rel:.2e}")
+    # 5b. loop-closure solvers, card vs CPU ---------------------------------------
+    for k, d in loop_solvers_card_vs_cpu().items():
+        log(f"[check] {k}, cuda vs cpu: max "
+            f"{'abs' if k.endswith('transforms') else 'rel'} diff {d:.2e}")
 
     # 6. the slice ----------------------------------------------------------------
     H, W, f = 384, 512, 400.0
@@ -503,11 +855,7 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     slam_cfg = json.loads(json.dumps(DEFAULT_CONFIG))
     slam_cfg["Tracking"]["motion_filter"]["kf_every"] = 2
-    # iteration counts cut to fit the time limit (widths are not cut)
-    slam_cfg["Mapping"].update({
-        "arena_capacity": 2 ** 17, "iterations": 20, "pose_refine_iters": 10,
-        "window_opt_iters": 10, "new_view_opt_iters": 10,
-        "gba_per_view": 2})
+    slam_cfg["Mapping"].update(SLICE_MAPPING_CUTS)
     slam_cfg["opt_params"] = {"position_lr_max_steps": 50}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_",
@@ -565,7 +913,11 @@ def main():
         f"({run_s:.1f} s), {np.mean(event_s):.2f} s per mapping-event frame "
         f"({', '.join(f'{s:.2f}' for s in event_s)}), terminate "
         f"{term_s:.1f} s, peak memory {peak_gb:.2f} GiB | {card}")
-    log(f"[slice] main-path launches: {launches}")
+    log(f"[slice] main-path launches: {launches}; loop closures fired: "
+        f"{len(slam.backend.closed)} (random weights: none is required)")
+
+    # 7. the loop-closure path ------------------------------------------------------
+    lc_launches = loop_closure_phase(model, G, card)
 
     kernels = []
     for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
@@ -575,7 +927,10 @@ def main():
             "name": name, "route": "cuda",
             "source": f"cut3r_slam_tpu_torch/csrc/{name}.cu",
             "replaces": "cut3r_slam_tpu/ops/gs_raster_pallas.py" + replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": t_k,
+            "launches": launches[name],
+            "launches_by_path": {"live": launches[name],
+                                 "loop_closure": lc_launches[name]},
+            "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

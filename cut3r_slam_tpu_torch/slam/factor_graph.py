@@ -1,12 +1,14 @@
-"""Covisibility factor graph (port of the part of ``cut3r_slam_tpu/slam/
-factor_graph.py`` the tracking frontend uses).
+"""Covisibility factor graph and loop detection (port of
+``cut3r_slam_tpu/slam/factor_graph.py``).
 
 The edge list is host numpy; the reprojection overlap of a keyframe's
-half-res pointmap against every keyframe camera runs over the full
-fixed-capacity buffers on the device. ``add``: near frames (center
-distance <= 1.0) need one-directional overlap > 0.3, far frames a
-bidirectional one; edges go in both directions. Loop detection and NMS
-serve loop closure only and wait with it.
+half-res pointmap against every keyframe camera and the patch-feature
+similarity run over the full fixed-capacity buffers on the device, in
+full f32. ``add``: near frames (center distance <= 1.0) need
+one-directional overlap > 0.3, far frames a bidirectional one; edges go
+in both directions. ``detect_loop``: covisible keyframes more than
+``temporal_window`` away; ``nms``: score = 0.8 * mean bidirectional
+overlap + 0.2 * feature match ratio, accepted above ``th``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from .. import full_f32
 
 __all__ = ["FactorGraph"]
 
@@ -41,6 +45,23 @@ def _overlap_to_all(pointmap, c2w_all, K4, bidir_pts, cur_w2c):
                      bidir_pts.reshape(bidir_pts.shape[0], -1, 3)) \
         + cur_w2c[:3, 3]
     return fwd, frac(q)
+
+
+@torch.no_grad()
+def _feat_sim_to_all(feat, feat_all, threshold: float = 0.7):
+    """Patch-feature match ratio of ``feat`` (N, D) against every keyframe
+    of ``feat_all`` (C, N, D), token 0 skipped: the fraction of tokens
+    whose best cosine similarity exceeds ``threshold``. Full f32 (no
+    TF32), so the threshold decisions are the JAX package's."""
+    with full_f32():
+        f0 = feat[1:]
+        f0 = f0 / torch.clamp(torch.linalg.norm(f0, dim=1, keepdim=True),
+                              min=1e-12)
+        fa = feat_all[:, 1:]
+        fa = fa / torch.clamp(torch.linalg.norm(fa, dim=2, keepdim=True),
+                              min=1e-12)
+        max_sim = torch.einsum("nd,cmd->cnm", f0, fa).amax(2)
+    return (max_sim > threshold).float().mean(1)
 
 
 class FactorGraph:
@@ -83,16 +104,8 @@ class FactorGraph:
         """Covisibility edges for the newest KF. c2w_all (C, 4, 4) host;
         pts_all (C, h, w, 3) device; K4 scaled to (h, w)."""
         n = valid_count if valid_count is not None else current_idx + 1
-        dev = pts_all.device
         cur_c2w = c2w_all[current_idx]
-        cur_w2c = np.linalg.inv(cur_c2w)
-        fwd, rev = _overlap_to_all(
-            pts_all[current_idx],
-            torch.as_tensor(np.asarray(c2w_all, np.float32), device=dev),
-            torch.as_tensor(np.asarray(K4, np.float32), device=dev), pts_all,
-            torch.as_tensor(np.asarray(cur_w2c, np.float32), device=dev))
-        fwd = fwd.cpu().numpy()
-        rev = rev.cpu().numpy()
+        fwd, rev = self._overlap(current_idx, c2w_all, pts_all, K4)
         dists = np.linalg.norm(c2w_all[:n, :3, 3] - cur_c2w[:3, 3], axis=1)
         near = dists <= self.near_dist
         sel = np.zeros(n, bool)
@@ -108,3 +121,35 @@ class FactorGraph:
             self.add_factors(jj, ii)
         self.age += 1
         return jj
+
+    @staticmethod
+    def _overlap(current_idx, c2w_all, pts_all, K4):
+        """(fwd, rev) overlap of keyframe ``current_idx`` with every
+        keyframe, as host arrays."""
+        dev = pts_all.device
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        with full_f32():
+            fwd, rev = _overlap_to_all(
+                pts_all[current_idx], t(c2w_all), t(K4), pts_all,
+                t(np.linalg.inv(c2w_all[current_idx])))
+        return fwd.cpu().numpy(), rev.cpu().numpy()
+
+    def detect_loop(self, current_idx: int, temporal_window: int = 8):
+        """Covisible keyframes more than ``temporal_window`` away, or
+        None."""
+        covis = self.jj[self.ii == current_idx]
+        cand = np.unique(covis[np.abs(covis - current_idx) > temporal_window])
+        return cand if len(cand) else None
+
+    def nms(self, cand: np.ndarray, current_idx: int, c2w_all: np.ndarray,
+            pts_all, feat_all, K4, th: float = 0.4) -> Optional[int]:
+        """The best-scoring loop candidate if its score exceeds ``th``."""
+        fwd, rev = self._overlap(current_idx, c2w_all, pts_all, K4)
+        feat_sim = _feat_sim_to_all(feat_all[current_idx],
+                                    feat_all).cpu().numpy()
+        scores = 0.8 * ((fwd + rev) / 2)[cand] + 0.2 * feat_sim[cand]
+        if scores.max() > th:
+            return int(cand[int(np.argmax(scores))])
+        return None

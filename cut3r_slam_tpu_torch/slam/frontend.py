@@ -8,7 +8,13 @@ batches pad with the last KF). ``submap_postprocess`` makes the
 predictions first-frame-relative, scale-aligns the submap to the previous
 one on the shared overlap frame, moves pointmaps to world frame and
 downsamples them; poses, depths and submap buffers are written back and
-covisibility edges added per keyframe. The GT-injection test mode waits.
+covisibility edges added per keyframe.
+
+GT-injection test mode (``set_gt_injection``): the submap decode is
+replaced by pointmaps built from ground-truth depth and submap-relative
+ground-truth poses perturbed by seeded noise, so the loop-closure path can
+be driven where the network's predictions carry no geometry (random
+weights).
 """
 from __future__ import annotations
 
@@ -17,8 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..geometry.lie import se3_from_matrix
-from ..geometry.pointmap import geotrf, pose_vec_to_matrix
+from ..geometry.lie import se3_exp, se3_from_matrix, se3_matrix
+from ..geometry.pointmap import depth_to_pointmap, geotrf, pose_vec_to_matrix
 from ..geometry.quaternion import quat_to_matrix, wxyz_to_xyzw
 from ..models import CUT3R
 from ..models.patch_embed import patch_positions
@@ -93,12 +99,51 @@ class TrackFrontend:
         self.is_initialized = False
         self.t1 = 0
         self.V = SUBMAP_SIZE + 1
+        self.gt_inject = None  # GT-injection test mode (set_gt_injection)
+
+    def set_gt_injection(self, provider, sigma_t: float = 0.05,
+                         sigma_r: float = 0.01, seed: int = 0):
+        """GT-injection test mode: ``provider(tstamp) -> (depth (H, W),
+        c2w (4, 4))``. Every view but a submap's anchor gets its relative
+        pose perturbed by se3 noise (translation ``sigma_t``, rotation
+        ``sigma_r``) drawn from ``np.random.default_rng(seed)``: the JAX
+        package's generator, so both packages draw the same noise."""
+        self.gt_inject = provider
+        self._gt_rng = np.random.default_rng(seed)
+        self._gt_sig = (float(sigma_t), float(sigma_r))
+
+    def _gt_infer(self, idxs):
+        kf = self.keyframes
+        dev = kf.device
+        _, c2w0 = self.gt_inject(int(kf.tstamp[idxs[0]]))
+        inv0 = np.linalg.inv(np.asarray(c2w0, np.float64))
+        pts, rels = [], []
+        st, sr = self._gt_sig
+        for k, i in enumerate(idxs):
+            depth, c2w = self.gt_inject(int(kf.tstamp[i]))
+            pts.append(depth_to_pointmap(
+                torch.as_tensor(np.asarray(depth, np.float32), device=dev),
+                torch.as_tensor(kf.intrinsic[i], device=dev)))
+            rel = inv0 @ np.asarray(c2w, np.float64)
+            if k > 0 and (st > 0 or sr > 0):
+                xi = np.concatenate([self._gt_rng.normal(0, st, 3),
+                                     self._gt_rng.normal(0, sr, 3)])
+                rel = se3_matrix(se3_exp(torch.as_tensor(
+                    xi, dtype=torch.float32))).numpy() @ rel
+            rels.append(rel.astype(np.float32))
+        H, W = kf.img_hw
+        conf = torch.full((len(idxs), H, W), 9.0, device=dev)  # 1-1/c = .89
+        return (torch.stack(pts), conf,
+                torch.as_tensor(np.stack(rels), device=dev))
 
     @torch.inference_mode()
     def infer_views(self, idxs):
         """(pts_self, conf_self, submap-relative c2w) for KF indices ``idxs``
         (length V), decoded from the stored encoder tokens (the motion
-        filter already ran the encoder per keyframe)."""
+        filter already ran the encoder per keyframe), or synthesized from
+        ground truth in GT-injection mode."""
+        if self.gt_inject is not None:
+            return self._gt_infer(idxs)
         kf = self.keyframes
         H, W = kf.img_hw
         p = self.model.cfg.patch_size

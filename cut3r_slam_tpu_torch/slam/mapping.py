@@ -18,6 +18,10 @@ same fused renders the JAX package's Pallas side uses on the chip:
   ``torch.Generator`` unless the caller injects them (``view_idx`` /
   ``split_noise``), as the parity tests do with the JAX package's draws.
 * ``data_update``: forward renders for the tracker's depth/pose writeback.
+* ``gaussian_update``: the loop-closure writeback: set the corrected
+  camera poses, rigidly move the Gaussians of every corrected submap
+  (``lc_transform``, their Adam moments zeroed), then refine every valid
+  camera's pose against the moved map.
 
 Parameters update in place: the hot paths run on live-prefix views of the
 arena (``arena[:last_alive_bound]``), so writes reach the full arena
@@ -36,11 +40,14 @@ import torch
 from .. import full_f32, resolve_device
 from ..ops.gs_raster import RasterizeConfig
 from ..ops.ssim import ssim
+from ..geometry.lie import se3_matrix
 from ..geometry.pointmap import depth_to_normal, depth_to_pointmap
+from ..geometry.quaternion import (matrix_to_quat, quat_normalize,
+                                   xyzw_to_wxyz)
 from .camera import CameraBuffer, se3_delta_to_matrix
 from .gaussian_map import (GaussianArena, PARAM_KEYS, seed_from_pointmap,
                            densify_and_prune, last_alive_bound)
-from .renderer import render_view, render_window, bin_view
+from .renderer import render_view, render_window, bin_view, quat_mult_wxyz
 
 __all__ = ["MappingConfig", "MappingBackend"]
 
@@ -575,6 +582,50 @@ class MappingBackend:
             + c[:, None, None, :3, 3]
         return {"depths": d, "pointmaps": p, "c2w": c,
                 "window": list(window)}
+
+    # ------------------------------------------------------------------
+    # loop closure
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    @full_f32()
+    def lc_transform(self, submap_ids, pose_updates):
+        """Rigidly move the alive Gaussians of the listed submaps
+        (``arena.kf_id``) by their SE(3) updates (S, 7) [t, q xyzw], compose
+        their wxyz rotations, and zero their Adam moments. Rows that match
+        no listed submap stay as they are."""
+        arena, dev = self.arena, self.device
+        ids = torch.as_tensor(np.asarray(submap_ids), dtype=torch.int32,
+                              device=dev)
+        upd = torch.as_tensor(np.asarray(pose_updates, np.float32),
+                              device=dev)
+        match = arena.kf_id[:, None] == ids[None, :]
+        sel = match.any(-1) & arena.alive
+        # argmax of an all-False row is 0; ``sel`` masks those rows out
+        which = torch.argmax(match.to(torch.uint8), -1)
+        T = se3_matrix(torch.cat([upd[:, :3], quat_normalize(upd[:, 3:7])],
+                                 -1))[which]
+        new_xyz = torch.einsum("nij,nj->ni", T[:, :3, :3], arena.xyz) \
+            + T[:, :3, 3]
+        qrot = xyzw_to_wxyz(matrix_to_quat(T[:, :3, :3]))
+        new_quat = quat_mult_wxyz(qrot, quat_normalize(arena.quat))
+        arena.xyz.copy_(torch.where(sel[:, None], new_xyz, arena.xyz))
+        arena.quat.copy_(torch.where(sel[:, None], new_quat, arena.quat))
+        self.adam.zero_rows(sel)
+
+    def gaussian_update(self, submap_ids, pose_updates, camera_idx,
+                        camera_w2c):
+        """Loop-closure writeback: the corrected w2c of every valid camera
+        listed, the rigid move of the corrected submaps' Gaussians, then a
+        pose refinement of each of those cameras."""
+        valid = self.cams.valid.cpu().numpy()
+        cams = [int(k) for k in camera_idx if valid[k]]
+        w2c = dict(zip((int(k) for k in camera_idx), camera_w2c))
+        for k in cams:
+            self.cams.w2c[k] = torch.as_tensor(np.asarray(w2c[k], np.float32),
+                                               device=self.device)
+        self.lc_transform(submap_ids, pose_updates)
+        for k in cams:
+            self.pose_refine(k)
 
     # ------------------------------------------------------------------
     def run(self, packet: Dict, iterations: int = 100, **draws):

@@ -2,12 +2,15 @@
 system.py``).
 
 ``run(t, img, K, img_map, K_map, second_last, last)``: keyframe filter ->
-frontend submap tracking -> mapping update for the new keyframes + depth /
-pose writeback into the keyframe store. ``terminate(t)``: final global BA,
-the mapper checkpoint and the Gaussian PLY. The configuration ported is
-one device, loop closure off, no PGBA, no mono prior, no GUI, mapping
-drained per event (``Mapping.interleave`` = 0); asking for any of the
-branches not ported raises NotImplementedError.
+frontend submap tracking -> (freeze-gated) loop backend -> on a closure,
+``mapper.gaussian_update`` and the optional Sim(3) PGBA pass -> mapping
+update for the new keyframes + depth / pose writeback into the keyframe
+store. ``run_test`` is the same step with ground truth injected in place
+of the network's predictions (the JAX package's GT-injection driver).
+``terminate(t)``: final global BA, the mapper checkpoint and the Gaussian
+PLY. The configuration ported is one device, no mono prior, no GUI,
+mapping drained per event (``Mapping.interleave`` = 0); asking for any of
+the branches not ported raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -19,11 +22,14 @@ import torch
 
 from .. import resolve_device
 from ..models import CUT3R
+from ..geometry.lie import se3_from_matrix
 from .keyframe import KeyframeStore
 from .motion_filter import MotionFilter
 from .factor_graph import FactorGraph
 from .frontend import TrackFrontend, pose_vec_to_matrix_np
+from .backend import TrackBackend
 from .mapping import MappingBackend, MappingConfig
+from .sim3_pgo import PGBABuffer
 
 __all__ = ["SLAMSystem"]
 
@@ -36,7 +42,7 @@ def _not_ported(what: str):
 class SLAMSystem:
     def __init__(self, model: CUT3R, cfg: Dict, buffer: int = 512,
                  img_hw=(384, 512), map_hw=None, enable_mapping: bool = True,
-                 enable_loop: bool = False, output_dir: str = "outputs/run",
+                 enable_loop: bool = True, output_dir: str = "outputs/run",
                  device="cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -46,10 +52,6 @@ class SLAMSystem:
         mcfg = cfg.get("Mapping", {})
         trcfg = cfg.get("Training", {})
         mf_cfg = tcfg.get("motion_filter", {})
-        if enable_loop:
-            _not_ported("loop closure (enable_loop=True)")
-        if bool(tcfg.get("pgba", {}).get("active", False)):
-            _not_ported("Sim(3) PGBA (Tracking.pgba.active)")
         if bool(mf_cfg.get("use_prior", False)):
             _not_ported("the mono prior (motion_filter.use_prior)")
         if bool(cfg.get("GUI", {}).get("active", False)):
@@ -78,7 +80,22 @@ class SLAMSystem:
                                    kf_every=mf_cfg.get("kf_every", 0))
         self.graph = FactorGraph()
         self.frontend = TrackFrontend(model, self.keyframes, self.graph)
+        # the JAX SLAMSystem reads these three backend keys only (it keeps
+        # freeze_after 20 and the Adam rate 5e-4)
+        bcfg = tcfg.get("backend", {})
+        self.backend = TrackBackend(
+            self.frontend, self.keyframes, self.graph,
+            loop_iters=bcfg.get("loop_iters", 2000),
+            loop_gap=bcfg.get("loop_gap", 8),
+            nms_thresh=bcfg.get("nms_thresh", 0.4))
         self.enable_loop = enable_loop
+        pgba_cfg = tcfg.get("pgba", {})
+        self.pgba = None
+        if bool(pgba_cfg.get("active", False)):
+            self.pgba = PGBABuffer(
+                loop_weight=float(pgba_cfg.get("loop_weight", 2.0)),
+                iters=int(pgba_cfg.get("iters", 6)),
+                conf_weighting=bool(pgba_cfg.get("conf_weighting", False)))
         self.mapper: Optional[MappingBackend] = None
         self.enable_mapping = enable_mapping
         self._map_cfg_extra = dict(
@@ -121,10 +138,63 @@ class SLAMSystem:
         took = self.filter(t, img, intrinsic=K4, second_last=second_last,
                            last=last, image_map=img_map,
                            intrinsic_map=K4_map)
-        _, viz_range, submap_idx = self.frontend.run(t, last)
+        return took, self._track_and_map(t, last)
+
+    def run_test(self, t: int, img: np.ndarray, K4: np.ndarray,
+                 depth_gt: np.ndarray, c2w_gt: np.ndarray,
+                 img_map: Optional[np.ndarray] = None,
+                 K4_map: Optional[np.ndarray] = None,
+                 second_last: bool = False, last: bool = False,
+                 sigma_t: float = 0.05, sigma_r: float = 0.01):
+        """GT-injection per-frame step: keyframes store the ground-truth
+        depth and pose, and the frontend and the loop backend build
+        pointmaps from ground-truth depth with perturbed relative poses in
+        place of the submap decode; the rest of the chain (filter, loop,
+        PGBA, mapping) runs as in ``run``."""
+        if self.frontend.gt_inject is None:
+            self._gt_store = {}
+            self.frontend.set_gt_injection(
+                lambda ts: self._gt_store[int(ts)], sigma_t=sigma_t,
+                sigma_r=sigma_r)
+        c2w_gt = np.asarray(c2w_gt, np.float32)
+        self._gt_store[int(t)] = (np.asarray(depth_gt, np.float32), c2w_gt)
+        self.last_t = t
+        if self.keep_all_frames:
+            self.images[t] = img_map if img_map is not None else img
+        pose_vec = se3_from_matrix(torch.as_tensor(c2w_gt)).numpy()
+        took = self.filter(t, img, intrinsic=K4, pose=pose_vec,
+                           depth=depth_gt, second_last=second_last,
+                           last=last, image_map=img_map,
+                           intrinsic_map=K4_map)
+        return took, self._track_and_map(t, last)
+
+    def _track_and_map(self, t: int, last: bool):
+        """Frontend tracking, the loop branch and mapping of one frame;
+        returns the new keyframe range or None."""
+        run_backend, viz_range, submap_idx = self.frontend.run(t, last)
+        if run_backend and self.enable_loop:
+            updates = self.backend.run(self.frontend.t1)
+            if updates is not None and self.mapper is not None:
+                self.mapper.gaussian_update(
+                    updates["submap_idx"], updates["pose_updates"],
+                    list(updates["camera_idx"]),
+                    np.linalg.inv(pose_vec_to_matrix_np(
+                        updates["camera_pose"])))
+            if updates is not None and self.pgba is not None:
+                # loop edge from the LC-corrected poses, then a global
+                # Sim(3) pass over all keyframes
+                kf = self.keyframes
+                self.pgba.on_new_keyframes(kf, kf.count)
+                self.pgba.on_loop(self.backend.closed_loop["idx_matched"][-1],
+                                  self.backend.closed_loop["idx_current"][-1],
+                                  kf)
+                self.pgba.solve_and_writeback(kf)
+        if viz_range is not None and self.pgba is not None:
+            # odometry constraints for the new keyframes
+            self.pgba.on_new_keyframes(self.keyframes, self.keyframes.count)
         if viz_range is not None and self.enable_mapping:
             self.call_mapper(viz_range, submap_idx)
-        return took, viz_range
+        return viz_range
 
     def call_mapper(self, viz_range, submap_idx):
         """Build the mapping packet, run the event, write back."""

@@ -1,9 +1,9 @@
-"""Where the live slice of the PyTorch/CUDA port spends its time, on one
-NVIDIA GPU: the per-layer trace tool behind PERF.md section 5.
+"""Where the PyTorch/CUDA port spends its time, on one NVIDIA GPU: the
+per-layer trace tool behind PERF.md section 5.
 
     python3 scripts/profile_torch_mapping.py
 
-Two parts, each at the slice's real widths, on the scene and model of
+Three parts, each at the slice's real widths, on the scenes and model of
 chip_smoke.py:
 
 * tracking: the full-width CUT3R (random weights from seed 0, bf16) on
@@ -15,7 +15,13 @@ chip_smoke.py:
   them seeded as a textured plane (~2 x 49k Gaussians alive), timing one
   iteration of each step kind: a 6-view window optimization, a one-view
   global-BA iteration and a pose refinement (which also re-bins once and
-  renders its seeding pass).
+  renders its seeding pass);
+* loop closure, at the shapes of chip_smoke.py's phase 7: one
+  ``pgo_align`` over 3 submaps of 192x256 pointmaps (200 of its 2000
+  Adam iterations), one ``gaussian_update`` of the mapping backend above
+  (both submaps moved, then the 6 cameras' pose refinements at phase 7's
+  10 iterations each) and one Sim(3) PGBA solve over 21 keyframes (20
+  odometry edges and a loop edge, 6 Gauss-Newton iterations).
 
 Prints per-step wall times (host clock around synchronized work, the mean
 of three calls), then for each step one profiled call (torch.profiler,
@@ -97,16 +103,63 @@ def mapping_steps(imgs):
         if i < 2:
             pts = np.stack([(xx - W / 2) / F * 2.0, (yy - H / 2) / F * 2.0,
                             np.full(xx.shape, 2.0)], -1) - w2c[:3, 3]
-            be.seed(i, pts, img[::2, ::2] / 255.0, np.ones(xx.shape, bool), 0)
+            be.seed(i, pts, img[::2, ::2] / 255.0, np.ones(xx.shape, bool), i)
     be.initialized = True
     window = list(range(len(imgs)))
-    return int(be.arena.alive.sum()), {
+    return be, {
         f"window V={len(window)} (opt + pose), 1 iteration":
             lambda: be.optimization(1, window),
         "global BA, 1 view, 1 iteration":
             lambda: be.global_ba(1, densify=False),
         "pose refine, 1 view, 1 iteration + seeding render":
             lambda: be.pose_refine(len(window) - 1)}
+
+
+def loop_closure_steps(be):
+    """The loop-closure steps; ``be`` is the mapping backend of
+    mapping_steps (its gaussian_update runs last: it moves the map)."""
+    import dataclasses
+    from chip_smoke import drift_chain
+    from cut3r_slam_tpu_torch.slam.backend import pgo_align
+    from cut3r_slam_tpu_torch.slam.keyframe import KeyframeStore
+    from cut3r_slam_tpu_torch.slam.sim3_pgo import PGBABuffer
+    dev = be.device
+    sub, surface, conf = drift_chain(3, seed=0, h=H // 2, w=W // 2)
+    sub, conf = torch.tensor(sub, device=dev), torch.tensor(conf, device=dev)
+    cur, lc = sub[2, 3], torch.tensor(surface, device=dev)
+
+    kf = KeyframeStore(32, (16, 16), 1, 4, device=dev)
+    rng = np.random.default_rng(0)
+    for i in range(21):
+        pose = np.zeros(7, np.float32)
+        pose[:3] = [0.25 * min(i, 20 - i), 0.0, 0.0] + rng.normal(0, .02, 3)
+        pose[6] = 1.0
+        kf.append(2 * i, np.zeros((16, 16, 3), np.uint8), pose=pose)
+    kf.depth[:21] = 2.0
+    pgba = PGBABuffer()
+    pgba.on_new_keyframes(kf, 21)
+    pgba.on_loop(4, 13, kf)
+
+    upd = np.zeros((2, 7), np.float32)
+    upd[:, 3:] = [0.0, 0.0, 0.0, 1.0]
+    upd[1, :3] = [0.001, -0.001, 0.0005]
+    cams = list(range(6))
+
+    def gaussian_update():
+        cfg = be.cfg
+        be.cfg = dataclasses.replace(cfg, pose_refine_iters=10)
+        try:
+            be.gaussian_update([0, 1], upd, cams,
+                               list(be.cams.w2c[:6].cpu().numpy()))
+        finally:
+            be.cfg = cfg
+    return {
+        "pgo_align, 3 submaps of 192x256, 200 iterations":
+            lambda: pgo_align(sub, conf, cur, lc, iters=200),
+        "PGBA solve, 21 keyframes, 21 edges, 6 iterations":
+            lambda: pgba.solve_and_writeback(kf),
+        "gaussian_update, 2 submaps, 6 cameras x 10 refine iterations":
+            gaussian_update}
 
 
 def profile_step(name, fn, wall_ms, card):
@@ -140,9 +193,10 @@ def main():
                           text=True).stdout.strip()
     imgs = synth_frames(SUBMAP_VIEWS, H, W)
     steps = tracking_steps(imgs)
-    alive, map_steps = mapping_steps(imgs)
+    be, map_steps = mapping_steps(imgs)
     steps.update(map_steps)
-    print(f"alive Gaussians {alive} | {card}")
+    steps.update(loop_closure_steps(be))
+    print(f"alive Gaussians {int(be.arena.alive.sum())} | {card}")
     walls = {name: timed(fn) for name, fn in steps.items()}
     for name, ms in walls.items():
         print(f"[wall] {name}: {ms:.2f} ms | {card}")

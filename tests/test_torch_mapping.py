@@ -158,6 +158,60 @@ def test_data_update_keeps_every_window_view(event):
     np.testing.assert_allclose(upd["depths"][2], upd["depths"][0])
 
 
+def test_gaussian_update_matches_jax(event, tmp_path):
+    """Loop-closure writeback from one state on both sides (the JAX
+    backend after the event, carried to the port through ``save`` /
+    ``load``): half the alive Gaussians relabelled to submap 1, updates for
+    submaps 1 and 2 (2 matches none), new w2c for both cameras, then the
+    rigid move and each camera's pose refinement. Moved parameters agree
+    to 1e-6; the refined poses to 1e-5 (one pose refinement from one
+    state agrees to 5e-8 in f32; four are chained here)."""
+    import dataclasses
+    jb = event[0]
+    saved = (jb.arena, jb.adam, jb.cams)
+    try:
+        alive = np.asarray(jb.arena.alive)
+        kf_id = np.asarray(jb.arena.kf_id).copy()
+        kf_id[np.flatnonzero(alive)[::2]] = 1
+        jb.arena = dataclasses.replace(jb.arena, kf_id=jnp.asarray(kf_id))
+        path = str(tmp_path / "state.npz")
+        jb.save(path)
+        tb = MappingBackend(MappingConfig(**CFG), K4, device="cpu")
+        tb.load(path)
+        upd = np.zeros((2, 7), np.float32)
+        upd[:, :3] = [[0.02, -0.01, 0.015], [5.0, 5.0, 5.0]]
+        q = np.asarray([0.01, -0.02, 0.015, 1.0], np.float32)
+        upd[:, 3:] = q / np.linalg.norm(q)
+        w2c = np.asarray(jb.cams.w2c)[:2].copy()
+        w2c[:, :3, 3] += [[0.01, 0.0, -0.01], [0.0, 0.01, 0.0]]
+        args = ([1, 2], upd, [0, 1], list(w2c))
+        m_before = tb.adam.m["xyz"].clone()
+        jb.gaussian_update(*args)
+        tb.gaussian_update(*args)
+        moved = kf_id == 1
+        assert moved.sum() > 100
+        for k, tol in (("xyz", 1e-6), ("quat", 1e-6)):
+            a = getattr(tb.arena, k).numpy()
+            b = np.asarray(getattr(jb.arena, k))
+            np.testing.assert_allclose(a[alive], b[alive], atol=tol, err_msg=k)
+        still = alive & ~moved
+        np.testing.assert_array_equal(tb.adam.m["xyz"].numpy()[still],
+                                      m_before.numpy()[still])
+        assert np.abs(m_before.numpy()[moved]).max() > 0
+        for d in (tb.adam.m, tb.adam.v):
+            for k, x in d.items():
+                assert not x.numpy()[moved].any(), k
+                np.testing.assert_array_equal(
+                    x.numpy()[moved],
+                    np.asarray((jb.adam[0] if d is tb.adam.m
+                                else jb.adam[1])[k])[moved])
+        np.testing.assert_allclose(tb.cams.w2c.numpy()[:2],
+                                   np.asarray(jb.cams.w2c)[:2], atol=1e-5)
+        assert np.abs(tb.cams.w2c.numpy()[:2] - w2c).max() > 1e-6
+    finally:
+        jb.arena, jb.adam, jb.cams = saved
+
+
 @pytest.mark.parametrize("caller", [True, False])
 def test_mapping_leaves_tf32_settings_alone(caller):
     """TF32 is off only inside the mapping path's renders and losses

@@ -116,8 +116,6 @@ def test_terminate_outputs(runs):
 
 
 @pytest.mark.parametrize("cfg, kwargs", [
-    ({}, {"enable_loop": True}),
-    ({"Tracking": {"pgba": {"active": True}}}, {}),
     ({"Tracking": {"motion_filter": {"use_prior": True}}}, {}),
     ({"GUI": {"active": True}}, {}),
     ({"Mapping": {"view_parallel": 2}}, {}),
@@ -125,7 +123,7 @@ def test_terminate_outputs(runs):
     ({"Mapping": {"gba_views_per_iter": 4}}, {}),
     ({"Mapping": {"gba_resample_every": 4}}, {}),
     ({"Mapping": {"parallel_kf_refine": True}}, {}),
-], ids=["loop", "pgba", "prior", "gui", "view_parallel", "interleave",
+], ids=["prior", "gui", "view_parallel", "interleave",
         "gba_views_per_iter", "gba_resample_every", "parallel_kf_refine"])
 def test_unported_settings_raise(cfg, kwargs, tmp_path):
     """Every branch of the JAX SLAMSystem that the port does not have yet
@@ -134,3 +132,28 @@ def test_unported_settings_raise(cfg, kwargs, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         SLAMSystem(model, cfg, buffer=4, img_hw=(H, W),
                    output_dir=str(tmp_path), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("pgba", [False, True], ids=["loop", "loop_pgba"])
+def test_loop_closure_settings_run(pgba, tmp_path):
+    """Loop closure is on by default, as in the JAX package, and the Sim(3)
+    PGBA is accepted; both drive the live loop through the loop backend's
+    scan (the first tracking event after keyframe 10 calls it)."""
+    model = CUT3R(CUT3RConfig.tiny(), device="cpu")
+    cfg = {"Tracking": {"motion_filter": {"kf_every": 2},
+                        "backend": {"loop_iters": 5},
+                        "pgba": {"active": pgba}},
+           "keep_all_frames": False}
+    slam = SLAMSystem(model, cfg, buffer=32, img_hw=(H, W),
+                      enable_mapping=False, output_dir=str(tmp_path),
+                      device="cpu")
+    assert slam.enable_loop and (slam.pgba is not None) == pgba
+    assert slam.backend.loop_iters == 5
+    calls = []
+    scan = slam.backend.run
+    slam.backend.run = lambda t1: calls.append(t1) or scan(t1)
+    for t, f in enumerate(_frames()):
+        slam.run(t, f, K4, last=(t == N_FRAMES - 1))
+    assert calls == [11]
+    kf = slam.keyframes
+    assert kf.count == 12 and np.isfinite(kf.pose[:kf.count]).all()
