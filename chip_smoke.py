@@ -20,6 +20,12 @@ Phases (any failure exits nonzero, and no result line is printed):
    max |cpu| below 1e-4: both run f32 in another summation order, where
    TF32 products would differ by ~5e-4 and a scatter that dropped
    duplicate edges by far more);
+5c. batched mapping paths, card vs CPU, at phase 5's shape: one
+   pose_refine_multi over three views (poses and scaled-depth pointmaps
+   within 1e-4 relative: one refinement is deterministic up to summation
+   order) and one global BA of 4 views a step in blocks of 4 steps sharing
+   a binning, with injected draws (per-step losses within 1e-2 relative as
+   in phase 5, poses within 2e-2);
 6. the live slice: SLAMSystem.run over 384x512 synthetic frames with the
    full-width CUT3R (random weights from a seed), loop closure on (the
    JAX package's default; whether a closure fires on random weights is
@@ -36,6 +42,22 @@ Phases (any failure exits nonzero, and no result line is printed):
    the next submap, so the seams are open before the closure), the corrected
    submaps' Gaussians moved, K1 and K2 launched inside gaussian_update,
    and the PGBA scales, poses, depths and Gaussians are finite;
+8. the demo driver at the JAX package's production mapping schedule:
+   ``cut3r_slam_tpu_torch.demo.main`` over phase 6's frames written as
+   512x384 PNGs, full-width CUT3R (phase 6's random weights), loop closure
+   on, with parallel keyframe refinement, 4-view global-BA steps in
+   4-step blocks, interleave 3 and early stop 0.01 (bench.py's TPU
+   schedule) at phase 6's iteration cuts, then terminate with its eval.
+   The driver's own ``build_model`` runs once first (no checkpoint:
+   random init from seed 0) and must give phase 6's tensors but for the
+   two head layers phase 6 rescales; the run then uses phase 6's model.
+   The phase attaches a stage timer to the system (the driver, as
+   demo.py, times only frames and terminate), so its frame times include
+   one synchronization per stage. It fails unless every output file exists, the keyframe eval holds a
+   finite PSNR over every valid keyframe, renders_kf holds a colour and a
+   depth per keyframe, no frame without a new submap ran more than 3
+   mapping slices, K1 and K2 launched inside the batched refine and the
+   batched global BA, and all state is finite;
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -508,6 +530,79 @@ def loop_solvers_card_vs_cpu():
     return diffs
 
 
+def batched_mapping_card_vs_cpu():
+    """Phase 5c (see the module docstring). Returns name -> measured
+    difference."""
+    import torch
+    from cut3r_slam_tpu_torch.slam.mapping import MappingBackend, \
+        MappingConfig
+    from cut3r_slam_tpu_torch.geometry.pointmap import depth_to_pointmap
+    from cut3r_slam_tpu_torch.geometry.lie import se3_exp, se3_matrix
+    H = W = 32
+    K4 = np.array([40.0, 40.0, W / 2, H / 2], np.float32)
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    img = (np.stack([(np.sin(xx / 3.0) * 0.5 + 0.5),
+                     (np.cos(yy / 4.0) * 0.5 + 0.5),
+                     ((xx + yy) % 7) / 7.0], -1) * 255).astype(np.uint8)
+    depth = (2.0 + 0.2 * np.sin(xx / 5.0)).astype(np.float32)
+    cfg = MappingConfig(height=H, width=W, capacity=2048, cam_capacity=8,
+                        pose_refine_iters=4, opt_segment=2, max_per_tile=256,
+                        gba_views_per_iter=4, gba_resample_every=4,
+                        gba_segment=8)
+    rng = np.random.default_rng(0)
+    be = MappingBackend(cfg, K4, device="cpu")
+    for i in range(5):
+        xi = rng.normal(0, 0.01, 6).astype(np.float32) if i else \
+            np.zeros(6, np.float32)
+        be.add_keyframe(i, img, depth,
+                        se3_matrix(se3_exp(torch.tensor(xi))).numpy())
+    pm = depth_to_pointmap(torch.tensor(depth), torch.tensor(K4)).numpy()
+    be.seed(0, pm[::2, ::2], img[::2, ::2].astype(np.float32) / 255.0,
+            np.ones((H // 2, W // 2), bool), 0)
+    with torch.no_grad():   # anisotropic Gaussians: no noise-led rotations
+        alive = be.arena.alive
+        q = be.arena.quat[alive] + torch.tensor(rng.normal(
+            0, 0.2, (int(alive.sum()), 4)), dtype=torch.float32)
+        be.arena.quat[alive] = q / q.norm(dim=1, keepdim=True)
+        be.arena.log_scales[alive] += torch.tensor(rng.normal(
+            0, 0.1, (int(alive.sum()), 3)), dtype=torch.float32)
+    state = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_5c_"), "s.npz")
+    be.save(state)
+    views = [np.stack([rng.permutation(5)[:4] for _ in range(2)])
+             for _ in range(2)]
+    noise = rng.normal(size=(2048, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        be = MappingBackend(cfg, K4, device=dev)
+        be.load(state)
+        pms, _ = be.pose_refine_multi([1, 2, 3])
+        r = {"pose_refine_multi poses": be.cams.w2c[1:4].cpu(),
+             "pose_refine_multi scaled-depth pointmaps": pms.cpu()}
+        be.load(state)
+        be.global_ba(64, densify=True, view_idx=views, split_noise=noise)
+        r["global BA per-step losses"] = torch.cat(be.gba_losses).cpu()
+        r["global BA poses"] = be.cams.w2c.cpu()
+        out[dev] = r
+    if out["cpu"]["global BA per-step losses"].numel() != 16:
+        fail("phase 5c: the global BA did not run 2 segments of 2 blocks "
+             "of 4 steps")
+    tol = {"pose_refine_multi poses": ("rel", 1e-4),
+           "pose_refine_multi scaled-depth pointmaps": ("rel", 1e-4),
+           "global BA per-step losses": ("elem", 1e-2),
+           "global BA poses": ("abs", 2e-2)}
+    diffs = {}
+    for k, (kind, bound) in tol.items():
+        a, b = out["cuda"][k], out["cpu"][k]
+        err = (a - b).abs()
+        d = float(err.max()) if kind == "abs" else \
+            float(err.max() / b.abs().max()) if kind == "rel" else \
+            float((err / b.abs()).max())
+        diffs[k] = d
+        if not d < bound:
+            fail(f"phase 5c: {k}, card vs cpu {d:.3e} >= {bound}")
+    return diffs
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the loop-closure path
 # ---------------------------------------------------------------------------
@@ -728,6 +823,186 @@ def loop_closure_phase(model, G, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the demo driver at the production mapping schedule
+# ---------------------------------------------------------------------------
+
+# bench.py's TPU mapping schedule (its lines 230-234)
+PRODUCTION_SCHEDULE = {"parallel_kf_refine": True, "gba_views_per_iter": 4,
+                       "gba_resample_every": 4, "interleave": 3,
+                       "opt_early_stop": 0.01}
+
+
+def demo_phase(model, frames, K4, G, card):
+    """Phase 8 (see the module docstring). Returns (launches of the run,
+    largest frame seconds)."""
+    import cv2
+    import torch
+    import yaml
+    from cut3r_slam_tpu_torch import demo
+    from cut3r_slam_tpu_torch.slam.mapping import MappingBackend
+    from cut3r_slam_tpu_torch.slam.system import SLAMSystem
+    from cut3r_slam_tpu_torch.utils.profiling import StageTimer
+    root = tempfile.mkdtemp(prefix="chip_smoke_demo_",
+                            dir=os.path.join(ROOT, "build"))
+    os.makedirs(os.path.join(root, "img"))
+    for t, img in enumerate(frames):
+        cv2.imwrite(os.path.join(root, "img", f"frame{t:04d}.png"),
+                    cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write(" ".join(str(float(x)) for x in K4) + "\n")
+    mapping = {k: v for k, v in SLICE_MAPPING_CUTS.items()
+               if k != "arena_capacity"}
+    mapping.update(PRODUCTION_SCHEDULE)
+    with open(os.path.join(root, "config.yaml"), "w") as f:
+        yaml.safe_dump({"Mapping": mapping}, f)
+    out = os.path.join(root, "out")
+    rec = {"frames": [], "refine": [], "gba": []}
+
+    # the driver's own model construction, once: a missing --ckpt takes
+    # the random init from seed 0, which is phase 6's model before
+    # plausible_random_cut3r rescales its two head layers
+    t0 = time.perf_counter()
+    built = demo.build_model(demo.parse_args([
+        "--imagedir", root, "--calib", root, "--ckpt",
+        os.path.join(root, "absent.pth")]), "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ref, got = model.state_dict(), built.state_dict()
+    rescaled = ("downstream_head.dpt_self.head.4.",
+                "downstream_head.pose_head.mlp.fc2.")
+    if set(got) != set(ref) or built.device.type != "cuda":
+        fail("phase 8: build_model's CUT3R differs from phase 6's in its "
+             "parameters or device")
+    for k, v in got.items():
+        if v.shape != ref[k].shape or v.dtype != ref[k].dtype \
+                or not torch.isfinite(v).all() or not (
+                    k.startswith(rescaled) or torch.equal(v, ref[k])):
+            fail(f"phase 8: build_model's {k} differs from phase 6's model")
+    del built, got
+    torch.cuda.empty_cache()
+    log(f"[demo] build_model (random init, seed 0) in {build_s:.1f} s: "
+        f"the same tensors as phase 6's model but for its rescaled head "
+        f"layers | {card}")
+
+    # the stage timer, attached here: demo.main (as demo.py) times only
+    # whole frames and terminate
+    stages = StageTimer()
+
+    def frame(orig, slam, t, *a, **k):
+        slam.timer = stages
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig(slam, t, *a, **k)
+        torch.cuda.synchronize()
+        rec["frames"].append((t, r[1] is not None, slam.frame_map_slices,
+                              time.perf_counter() - t0))
+        return r
+
+    def launches_in(key, keep=lambda *a: True):
+        def around(orig, *a):
+            l0 = dict(G.LAUNCHES)
+            r = orig(*a)
+            if keep(*a):
+                rec[key].append({n: G.LAUNCHES[n] - l0[n] for n in l0})
+            return r
+        return around
+
+    saved = [(SLAMSystem, "run"), (MappingBackend, "pose_refine_multi"),
+             (MappingBackend, "_gba_segment"), (demo, "build_model")]
+    saved = [(o, n, getattr(o, n)) for o, n in saved]
+    wraps = {"run": frame,
+             "pose_refine_multi": launches_in(
+                 "refine", lambda self, idxs: len(idxs) > 1),
+             "_gba_segment": launches_in(
+                 "gba", lambda self, ab, adb, vi: vi.shape[1] > 1)}
+    for o, n, f in saved[:3]:
+        setattr(o, n, (lambda f, w: lambda *a, **k: w(f, *a, **k))(
+            f, wraps[n]))
+    demo.build_model = lambda args, device: model
+    try:
+        for k in G.LAUNCHES:
+            G.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        slam, result = demo.main([
+            "--imagedir", os.path.join(root, "img"), "--calib",
+            os.path.join(root, "calib.txt"), "--config",
+            os.path.join(root, "config.yaml"), "--output", out,
+            "--buffer", "64", "--kf_every", "2", "--arena_capacity",
+            str(2 ** 17), "--finalize_iters", "50"])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(G.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        for o, n, f in saved:
+            setattr(o, n, f)
+
+    kf, m = slam.keyframes, slam.mapper
+    valid = int(m.cams.valid.sum())
+    for f in ("image_shape.txt", "timing.json", "traj_kf.txt",
+              "intrinsics.npy", "result.json", "gaussians.npz",
+              "3dgs_final.ply", "psnr/final/final_result_kf.json"):
+        if not os.path.exists(os.path.join(out, f)):
+            fail(f"phase 8: {f} was not written")
+    with open(os.path.join(out, "psnr", "final", "final_result_kf.json")) as f:
+        ev = json.load(f)
+    if ev["n_views"] != valid or not np.isfinite(ev["mean_psnr"]):
+        fail(f"phase 8: keyframe eval over {ev['n_views']} of {valid} "
+             f"keyframes, PSNR {ev['mean_psnr']}")
+    rk = os.listdir(os.path.join(out, "renders_kf"))
+    n_color = sum(f.startswith("color_") for f in rk)
+    n_depth = sum(f.startswith("depth_") and f.endswith(".png") for f in rk)
+    n_img = len(os.listdir(os.path.join(out, "renders_kf", "image_final")))
+    if not n_color == n_depth == n_img == valid:
+        fail(f"phase 8: renders_kf holds {n_color} colour / {n_depth} depth /"
+             f" {n_img} eval renders for {valid} keyframes")
+    busy = [(t, n) for t, ev_, n, _ in rec["frames"] if not ev_ and n > 3]
+    if busy:
+        fail(f"phase 8: frames without a new submap ran > 3 slices: {busy}")
+    if not rec["refine"] or not rec["gba"]:
+        fail(f"phase 8: the batched refine ran {len(rec['refine'])} times, "
+             f"the batched global BA {len(rec['gba'])} segments")
+    for key in ("refine", "gba"):
+        if min(min(r.values()) for r in rec[key]) <= 0:
+            fail(f"phase 8: a kernel did not launch inside a batched {key}: "
+                 f"{rec[key]}")
+    live = m.arena.alive
+    if not (np.isfinite(kf.pose[:kf.count]).all()
+            and np.isfinite(kf.depth[:kf.count]).all()
+            and torch.isfinite(m.cams.w2c).all()
+            and all(torch.isfinite(getattr(m.arena, k)[live]).all()
+                    for k in ("xyz", "f_dc", "opacity_logit", "log_scales",
+                              "quat"))):
+        fail("phase 8: non-finite poses, depths or Gaussians")
+    if min(launches.values()) <= 0:
+        fail(f"phase 8: a kernel was never launched: {launches}")
+    with open(os.path.join(out, "timing.json")) as f:
+        timing = json.load(f)
+    ft = [s for _, _, _, s in rec["frames"]]
+    n = len(ft)
+    run_s = sum(ft)
+    log(f"[demo] {n} frames, {kf.count} keyframes, {valid} mapped, "
+        f"{int(live.sum())} alive Gaussians; keyframe PSNR "
+        f"{ev['mean_psnr']:.3f} dB (random weights); {n / run_s:.3f} "
+        f"frames/s over run() ({run_s:.1f} s), {n / total_s:.3f} frames/s "
+        f"with terminate ({total_s:.1f} s), largest frame {max(ft):.2f} s, "
+        f"peak memory {peak_gb:.2f} GiB | {card}")
+    log(f"[demo] mapping slices per frame {[x[2] for x in rec['frames']]}; "
+        f"frame seconds {[round(x, 2) for x in ft]}")
+    log(f"[demo] timing.json mean ms: " + ", ".join(
+        f"{k} {v['mean_ms']} (x{v['calls']})" for k, v in timing.items()))
+    log(f"[demo] stage mean ms (the timer attached by this phase): " + ", ".join(
+        f"{k} {v['mean_ms']} (x{v['calls']})"
+        for k, v in stages.summary().items()))
+    log(f"[demo] launches: {launches}; inside the batched refines "
+        f"{rec['refine']}; inside the batched global-BA segments "
+        f"{[r for r in rec['gba']]}")
+    return launches, max(ft)
+
+
 def kernel_phases(G, card):
     """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
     scene, the staging-edge scene and at the mapping shape (V = 1 and 10,
@@ -845,6 +1120,11 @@ def main():
     for k, d in loop_solvers_card_vs_cpu().items():
         log(f"[check] {k}, cuda vs cpu: max "
             f"{'abs' if k.endswith('transforms') else 'rel'} diff {d:.2e}")
+    # 5c. batched mapping paths, card vs CPU ---------------------------------
+    for k, d in batched_mapping_card_vs_cpu().items():
+        log(f"[check] {k}, cuda vs cpu: max "
+            f"{'abs' if k.endswith('poses') and 'BA' in k else 'rel'} diff "
+            f"{d:.2e}")
 
     # 6. the slice ----------------------------------------------------------------
     H, W, f = 384, 512, 400.0
@@ -869,15 +1149,15 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    event_s = []
+    event_s, frame_s = [], []
     for t, img in enumerate(frames):
         te = time.perf_counter()
         _, viz = slam.run(t, img, K4, img_map=img, K4_map=K4,
                           last=(t == len(frames) - 1))
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - te)
         if viz is not None:
-            torch.cuda.synchronize()
-            event_s.append(time.perf_counter() - te)
-    torch.cuda.synchronize()
+            event_s.append(frame_s[-1])
     run_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     slam.terminate(len(frames) - 1)
@@ -919,6 +1199,12 @@ def main():
     # 7. the loop-closure path ------------------------------------------------------
     lc_launches = loop_closure_phase(model, G, card)
 
+    # 8. the demo driver at the production mapping schedule ------------------
+    demo_launches, demo_max = demo_phase(model, frames, K4, G, card)
+    log(f"[demo] largest frame: {max(frame_s):.2f} s drained (phase 6) vs "
+        f"{demo_max:.2f} s interleaved, production schedule (phase 8); not "
+        f"a paired comparison | {card}")
+
     kernels = []
     for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
                            ("gs_blend_bwd", ":241 _blend_bwd_kernel")):
@@ -929,7 +1215,9 @@ def main():
             "replaces": "cut3r_slam_tpu/ops/gs_raster_pallas.py" + replaces,
             "launches": launches[name],
             "launches_by_path": {"live": launches[name],
-                                 "loop_closure": lc_launches[name]},
+                                 "loop_closure": lc_launches[name],
+                                 "demo_production_schedule":
+                                     demo_launches[name]},
             "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})

@@ -1,6 +1,7 @@
 """Pointmap / pose utilities shared by tracking and mapping (port of
 ``cut3r_slam_tpu/geometry/pointmap.py``: ``geotrf``, ``depth_to_pointmap``,
-``depth_to_normal``, ``pose_vec_to_matrix``).
+``pointmap_to_depth``, ``depth_to_normal``, ``pose_vec_to_matrix``,
+``matrix_to_pose_vec``, ``umeyama_alignment``).
 
 Pose vector convention at the SLAM layer: ``[t(3), quat xyzw]``
 camera-to-world.
@@ -10,9 +11,10 @@ from __future__ import annotations
 import torch
 
 from .quaternion import quat_normalize
-from .lie import se3_matrix
+from .lie import se3_from_matrix, se3_matrix
 
-__all__ = ["geotrf", "depth_to_pointmap", "pose_vec_to_matrix",
+__all__ = ["geotrf", "depth_to_pointmap", "pointmap_to_depth",
+           "pose_vec_to_matrix", "matrix_to_pose_vec", "umeyama_alignment",
            "depth_to_normal"]
 
 
@@ -41,10 +43,37 @@ def depth_to_pointmap(depth: torch.Tensor, intrinsics: torch.Tensor,
     return pts
 
 
+def pointmap_to_depth(pts: torch.Tensor) -> torch.Tensor:
+    return pts[..., 2]
+
+
 def pose_vec_to_matrix(pose: torch.Tensor) -> torch.Tensor:
     """[t, quat xyzw] (..., 7) -> (..., 4, 4)."""
     return se3_matrix(torch.cat([pose[..., :3],
                                  quat_normalize(pose[..., 3:7])], -1))
+
+
+def matrix_to_pose_vec(m: torch.Tensor) -> torch.Tensor:
+    return se3_from_matrix(m)
+
+
+def umeyama_alignment(x: torch.Tensor, y: torch.Tensor,
+                      with_scale: bool = True):
+    """Least-squares similarity aligning point sets x -> y (N, 3) (Umeyama
+    1991): (R (3, 3), t (3,), s) with y ~ s R x + t; s = 1 without
+    ``with_scale``."""
+    mu_x, mu_y = x.mean(0), y.mean(0)
+    xc, yc = x - mu_x, y - mu_y
+    n = x.shape[0]
+    U, D, Vt = torch.linalg.svd(yc.T @ xc / n)
+    S = torch.eye(3, dtype=x.dtype, device=x.device)
+    if torch.linalg.det(U) * torch.linalg.det(Vt) < 0:
+        S[2, 2] = -1.0
+    R = U @ S @ Vt
+    var_x = (xc * xc).sum() / n
+    s = torch.trace(torch.diag(D) @ S) / torch.clamp(var_x, min=1e-12) \
+        if with_scale else torch.ones((), dtype=x.dtype, device=x.device)
+    return R, mu_y - s * R @ mu_x, s
 
 
 def depth_to_normal(depth: torch.Tensor, intrinsics: torch.Tensor

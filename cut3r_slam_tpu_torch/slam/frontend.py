@@ -145,9 +145,16 @@ class TrackFrontend:
         if self.gt_inject is not None:
             return self._gt_infer(idxs)
         kf = self.keyframes
-        H, W = kf.img_hw
+        return self.decode_feats(
+            kf.featI[torch.as_tensor(list(idxs), device=kf.device)])
+
+    @torch.inference_mode()
+    def decode_feats(self, feat: torch.Tensor):
+        """``infer_views`` from encoder tokens (V, N, D) given directly
+        (terminate-time densification decodes a frame that is no
+        keyframe)."""
+        H, W = self.keyframes.img_hw
         p = self.model.cfg.patch_size
-        feat = kf.featI[torch.as_tensor(list(idxs), device=kf.device)]
         V = feat.shape[0]
         pos = patch_positions(V, H // p, W // p, feat.device)
         out, _ = self.model.decode_views(feat[:, None], pos[:, None], H, W,

@@ -1,5 +1,5 @@
-"""Gaussian mapping backend, per-frame variant (port of the sequential path
-of ``cut3r_slam_tpu/slam/mapping.py``).
+"""Gaussian mapping backend, per-frame variant (port of the single-device
+paths of ``cut3r_slam_tpu/slam/mapping.py``).
 
 Host code orchestrates; every optimization loop is a Python loop over the
 same fused renders the JAX package's Pallas side uses on the chip:
@@ -12,11 +12,19 @@ same fused renders the JAX package's Pallas side uses on the chip:
   blend per iteration (``render_window``) with bins cached per segment;
   RGB 0.8·L1 + 0.2·(1−SSIM), inverse-depth L1, depth-normal consistency,
   isotropic regularization, per-view exposure; host early stop.
-* ``global_ba_steps``: one random view per iteration in segments of
-  ``gba_segment``; densification stats accumulate and ``densify_and_prune``
-  runs once, mid-way. The view draws and the split noise come from a
-  ``torch.Generator`` unless the caller injects them (``view_idx`` /
-  ``split_noise``), as the parity tests do with the JAX package's draws.
+* ``pose_refine_multi``: the same problem for B new keyframes at once:
+  each iteration renders all B views through ONE ``render_window`` with
+  per-view deltas, the loss is the sum of the per-view terms and Adam runs
+  on the stacked (B, 3) deltas (``Mapping.parallel_kf_refine``).
+* ``global_ba_steps``: ``gba_views_per_iter`` = k distinct random views per
+  solver step (one fused render, one Gaussian Adam step on the batch-mean
+  gradient, per-view pose/exposure Adam), in blocks of
+  ``gba_resample_every`` = m steps that share one tile binning made at the
+  block-start poses, in segments of ``gba_segment`` steps; densification
+  stats accumulate and ``densify_and_prune`` runs once, mid-way. The view
+  draws and the split noise come from a ``torch.Generator`` unless the
+  caller injects them (``view_idx`` / ``split_noise``), as the parity tests
+  do with the JAX package's draws.
 * ``data_update``: forward renders for the tracker's depth/pose writeback.
 * ``gaussian_update``: the loop-closure writeback: set the corrected
   camera poses, rigidly move the Gaussians of every corrected submap
@@ -40,6 +48,7 @@ import torch
 from .. import full_f32, resolve_device
 from ..ops.gs_raster import RasterizeConfig
 from ..ops.ssim import ssim
+from ..utils.profiling import timed
 from ..geometry.lie import se3_matrix
 from ..geometry.pointmap import depth_to_normal, depth_to_pointmap
 from ..geometry.quaternion import (matrix_to_quat, quat_normalize,
@@ -47,7 +56,7 @@ from ..geometry.quaternion import (matrix_to_quat, quat_normalize,
 from .camera import CameraBuffer, se3_delta_to_matrix
 from .gaussian_map import (GaussianArena, PARAM_KEYS, seed_from_pointmap,
                            densify_and_prune, last_alive_bound)
-from .renderer import render_view, render_window, bin_view, quat_mult_wxyz
+from .renderer import render_view, render_window, bin_window, quat_mult_wxyz
 
 __all__ = ["MappingConfig", "MappingBackend"]
 
@@ -77,6 +86,12 @@ class MappingConfig:
     window_opt_iters: int = 20
     new_view_opt_iters: int = 50
     gba_per_view: int = 10
+    # views rendered per global-BA solver step (1 = one view a step)
+    gba_views_per_iter: int = 1
+    # global-BA steps per view draw, sharing one tile binning
+    gba_resample_every: int = 1
+    # refine a submap's new keyframes in one batched problem
+    parallel_kf_refine: bool = False
     alpha_th: float = 0.5
     opt_early_stop_rel: float = 0.0
     downsample: int = 2
@@ -144,6 +159,7 @@ class MappingBackend:
             height=cfg.height, width=cfg.width,
             max_per_tile=cfg.max_per_tile, kernel_size=cfg.kernel_size)
         self.rng_seed = int(seed)
+        self.timer = None  # optional utils.profiling.StageTimer
         self.reset_state()
 
     def reset_state(self):
@@ -154,11 +170,29 @@ class MappingBackend:
                                        cfg.width, self.device)
         self.current_window: List[int] = []
         self.initialized = False
+        self.gba_losses: List[torch.Tensor] = []
         # GBA view choice + split noise (CPU generator: same draws on
         # every device)
         self.gen = torch.Generator().manual_seed(self.rng_seed)
 
     # ------------------------------------------------------------------
+    def _tm(self, stage: str):
+        """Stage timer of ``run_steps``' phases, synchronized on exit (a
+        null context without ``self.timer``)."""
+        return timed(self.timer, stage, self.device)
+
+    def _timed_steps(self, stage: str, gen):
+        """Drive a sub-generator one slice at a time, timing each slice
+        under ``stage`` but not the time spent outside it between yields
+        (the caller may run tracking frames there)."""
+        while True:
+            with self._tm(stage):
+                try:
+                    v = next(gen)
+                except StopIteration:
+                    return
+            yield v
+
     def _lrs(self):
         c = self.cfg
         return {"xyz": c.position_lr, "f_dc": c.feature_lr,
@@ -204,73 +238,93 @@ class MappingBackend:
     # ------------------------------------------------------------------
     # pose refine
     # ------------------------------------------------------------------
-    def _pose_loss(self, out, image, depth_gt, dt, dr):
+    def _pose_losses(self, out, image, depth_gt, dt, dr):
+        """Per-view pose-refine losses over a leading view axis: maps
+        (V, H, W, ...), deltas (V, 3) -> (V,)."""
         a_th = self.cfg.alpha_th
         img, d, a = out["color"], out["depth"], out["alpha"]
         amask = (a > a_th).detach()
-        ratio = amask.float().mean()
-        rgb_l = torch.abs((image - img) * amask[..., None]).sum() \
-            / torch.clamp(amask.sum() * 3.0, min=1.0)
+        ratio = amask.flatten(1).float().mean(1)
+        rgb_l = torch.abs((image - img) * amask[..., None]).flatten(1).sum(1) \
+            / torch.clamp(amask.flatten(1).sum(1) * 3.0, min=1.0)
         dmask = amask & (depth_gt > 1e-3) & (d > 1e-3)
         diff = torch.where(dmask, torch.log(torch.clamp(d, min=1e-6))
                            - torch.log(torch.clamp(depth_gt, min=1e-6)),
                            torch.zeros_like(d))
-        n = torch.clamp(dmask.sum().float(), min=1.0)
-        mean = diff.sum() / n
-        var = (diff * diff).sum() / n - mean * mean
-        pose_l = (dr ** 2).sum() + (dt ** 2).sum()
+        n = torch.clamp(dmask.flatten(1).sum(1).float(), min=1.0)
+        mean = diff.flatten(1).sum(1) / n
+        var = (diff * diff).flatten(1).sum(1) / n - mean * mean
+        pose_l = (dr ** 2).sum(-1) + (dt ** 2).sum(-1)
         return 5 * ratio * rgb_l + ratio * var + 0.05 * (2 - ratio) * pose_l
 
-    @full_f32()
     def pose_refine(self, idx: int):
         """Refine one view's pose; returns the downsampled (pointmap, valid)
         for seeding and writes the refined pose and scaled depth back."""
-        cfg, K4, rcfg = self.cfg, self.K4, self.raster_cfg
-        image, depth_gt = self._img(idx), self._depth(idx)
+        pointmaps, valids = self.pose_refine_multi([idx])
+        return pointmaps[0], valids[0]
+
+    @full_f32()
+    def pose_refine_multi(self, idxs: List[int]):
+        """Refine B views' poses (their initial poses already chained, see
+        ``run_steps``); returns the downsampled (pointmaps, valids) stacked
+        over the views and writes the refined poses and scaled depths
+        back. Every iteration renders all B views through one
+        ``render_window`` (one K1, one K2) with per-view deltas; the loss
+        is the sum of the per-view terms and Adam runs on the stacked
+        (B, 3) deltas, so each view's problem stays its own. Bins are
+        re-made once per ``opt_segment`` at the current deltas."""
+        cfg, K4, rcfg, dev = self.cfg, self.K4, self.raster_cfg, self.device
+        ki = torch.as_tensor(idxs, dtype=torch.long, device=dev)
+        B = len(idxs)
+        images, depth_gts = self._img(ki), self._depth(ki)
         arena_b, _ = self._sliced()
         params, alive = arena_b.params(), arena_b.alive
-        w2c = self.cams.w2c[idx].clone()
-        deltas = {"t": torch.zeros(3, device=self.device),
-                  "r": torch.zeros(3, device=self.device)}
+        w2cs = self.cams.w2c[ki].clone()
+        deltas = {"t": torch.zeros(B, 3, device=dev),
+                  "r": torch.zeros(B, 3, device=dev)}
         lrs = {"t": cfg.pose_lr * 10, "r": cfg.pose_lr * 2}
         adam = Adam(deltas)
         seg = max(1, min(cfg.opt_segment, cfg.pose_refine_iters))
         n_seg = -(-cfg.pose_refine_iters // seg)
         for _ in range(n_seg):
-            bins = bin_view(params, alive, w2c, K4, rcfg,
-                            trans_delta=deltas["t"], rot_delta=deltas["r"])
+            bins = bin_window(params, alive, w2cs, K4, rcfg,
+                              trans_deltas=deltas["t"],
+                              rot_deltas=deltas["r"])
             for _ in range(seg):
                 dt, dr = _leaf(deltas["t"]), _leaf(deltas["r"])
-                out = render_view(params, alive, w2c, K4, rcfg,
-                                  trans_delta=dt, rot_delta=dr, bins=bins)
-                loss = self._pose_loss(out, image, depth_gt, dt, dr)
+                outs = render_window(params, alive, w2cs, K4, rcfg,
+                                     trans_deltas=dt, rot_deltas=dr,
+                                     bins=bins)
+                loss = self._pose_losses(outs, images, depth_gts, dt,
+                                         dr).sum()
                 gt_, gr_ = torch.autograd.grad(loss, (dt, dr))
                 adam.step(deltas, {"t": gt_, "r": gr_}, lrs)
         with torch.no_grad():
-            new_w2c = se3_delta_to_matrix(deltas["t"], deltas["r"]) @ w2c
-            gt_scaled, pointmap, valid = self._rescale_and_unproject(
-                params, alive, new_w2c, depth_gt)
-            self.cams.w2c[idx] = new_w2c
-            self.cams.depth[idx] = gt_scaled.to(torch.bfloat16)
+            new_w2c = se3_delta_to_matrix(deltas["t"], deltas["r"]) @ w2cs
+            outs = render_window(params, alive, new_w2c, K4, rcfg)
+            gt_scaled, pointmaps, valids = self._rescale_and_unproject(
+                outs, depth_gts, new_w2c)
+            self.cams.w2c[ki] = new_w2c
+            self.cams.depth[ki] = gt_scaled.to(torch.bfloat16)
         ds = cfg.downsample
-        return pointmap[::ds, ::ds], valid[::ds, ::ds]
+        return pointmaps[:, ::ds, ::ds], valids[:, ::ds, ::ds]
 
-    def _rescale_and_unproject(self, params, alive, w2c, depth_gt):
-        """Return-args pass of pose refine: scale-corrected gt depth, its
-        world pointmap, and the low-alpha validity mask for seeding."""
+    def _rescale_and_unproject(self, out, depth_gt, w2c):
+        """Return-args pass of pose refine, per view of the rendered maps
+        (V, H, W): scale-corrected gt depth, its world pointmap, and the
+        low-alpha validity mask for seeding."""
         a_th = self.cfg.alpha_th
-        out = render_view(params, alive, w2c, self.K4, self.raster_cfg)
         a, d = out["alpha"], out["depth"]
         amask = (a > a_th) & (depth_gt > 1e-3) & (d > 1e-3)
-        ratio = (a > a_th).float().mean()
+        ratio = (a > a_th).flatten(1).float().mean(1)
         diff = torch.where(amask, torch.log(torch.clamp(d, min=1e-6))
                            - torch.log(torch.clamp(depth_gt, min=1e-6)),
                            torch.zeros_like(d))
-        scale = torch.exp(diff.sum() / torch.clamp(amask.sum().float(),
-                                                   min=1.0))
+        scale = torch.exp(diff.flatten(1).sum(1) / torch.clamp(
+            amask.flatten(1).sum(1).float(), min=1.0))
         scale = torch.where(ratio > 0.3, torch.clamp(scale, 0.95, 1.05),
                             torch.ones_like(scale))
-        gt_scaled = scale * depth_gt
+        gt_scaled = scale[:, None, None] * depth_gt
         valid = (a <= a_th) & (depth_gt > 1e-3)
         pointmap = depth_to_pointmap(gt_scaled, self.K4,
                                      c2w=torch.linalg.inv(w2c))
@@ -356,10 +410,7 @@ class MappingBackend:
                 w2c = self.cams.w2c[idx].clone()
                 exposure = {"a": self.cams.exposure_a[idx].clone(),
                             "b": self.cams.exposure_b[idx].clone()}
-                bins = [bin_view(params, alive, w2c[v], K4, rcfg)
-                        for v in range(V)]
-                bins = (torch.stack([b[0] for b in bins]),
-                        torch.stack([b[1] for b in bins]))
+                bins = bin_window(params, alive, w2c, K4, rcfg)
                 gdns = depth_to_normal(depths_gt, K4)
                 for _ in range(seg):
                     p = {k: _leaf(v) for k, v in params.items()}
@@ -407,10 +458,11 @@ class MappingBackend:
     # global BA
     # ------------------------------------------------------------------
     def _gba_batch(self, params, alive, w2c_all, expa_all, expb_all,
-                   vi_batch, gdns):
+                   vi_batch, gdns, bins=None):
         """Per-view losses and gradients for a batch of views rendered
-        through ONE fused blend; Gaussian-space quantities reduced over
-        the batch (sum for grads/stats, max for radii)."""
+        through ONE fused blend (against the block's cached ``bins`` when
+        given); Gaussian-space quantities reduced over the batch (sum for
+        grads/stats, max for radii)."""
         cfg = self.cfg
         k = vi_batch.shape[0]
         P = params["xyz"].shape[0]
@@ -453,11 +505,17 @@ class MappingBackend:
     @torch.no_grad()
     @full_f32()
     def _gba_segment(self, arena_b: GaussianArena, adam_b: Adam,
-                     view_idx: torch.Tensor):
-        cfg, dev = self.cfg, self.device
+                     view_idx: torch.Tensor) -> torch.Tensor:
+        """One segment: per block (a row of ``view_idx``, k distinct views)
+        the views are binned once at the block-start poses when
+        ``gba_resample_every`` = m > 1 (m = 1 bins every render afresh) and
+        their gt normal maps are made once; then m solver steps. Returns
+        the per-step batch-mean losses (n_blocks * m,)."""
+        cfg, dev, K4, rcfg = self.cfg, self.device, self.K4, self.raster_cfg
         params, alive = arena_b.params(), arena_b.alive
         C = self.cams.w2c.shape[0]
         k_batch = view_idx.shape[1]
+        m_iters = max(1, cfg.gba_resample_every)
         lrs_pe = {"t": cfg.pose_lr * 10, "r": cfg.pose_lr * 2,
                   "a": cfg.exposure_lr, "b": cfg.exposure_lr}
         shapes = {"t": (3,), "r": (3,), "a": (3, 3), "b": (3,)}
@@ -471,71 +529,98 @@ class MappingBackend:
         expb_all = self.cams.exposure_b.clone()
         losses = []
         for vi in view_idx:
-            gdns = depth_to_normal(self._depth(vi), self.K4)
-            with torch.enable_grad():
-                l, gp_sum, ga_c, den_c, mr_c, gpes, w2cs = self._gba_batch(
-                    params, alive, w2c_all, expa_all, expb_all, vi, gdns)
-            adam_b.step(params, {k: g / k_batch for k, g in gp_sum.items()},
-                        self._lrs())
-            t_vi = pv_t[vi] + 1
-            bc1 = 1 - 0.9 ** t_vi.float()
-            bc2 = 1 - 0.999 ** t_vi.float()
-            pose_exp = {"t": torch.zeros(k_batch, 3, device=dev),
-                        "r": torch.zeros(k_batch, 3, device=dev),
-                        "a": expa_all[vi], "b": expb_all[vi]}
-            new_pe = {}
-            for k in pose_exp:
-                ex = (1,) * (gpes[k].dim() - 1)
-                mk = 0.9 * pv_m[k][vi] + 0.1 * gpes[k]
-                vk = 0.999 * pv_v[k][vi] + 0.001 * gpes[k] ** 2
-                pv_m[k][vi] = mk
-                pv_v[k][vi] = vk
-                new_pe[k] = pose_exp[k] - lrs_pe[k] \
-                    * (mk / bc1.reshape((-1,) + ex)) \
-                    / (torch.sqrt(vk / bc2.reshape((-1,) + ex)) + 1e-8)
-            pv_t[vi] = t_vi
-            w2c_all[vi] = se3_delta_to_matrix(new_pe["t"], new_pe["r"]) @ w2cs
-            expa_all[vi] = new_pe["a"]
-            expb_all[vi] = new_pe["b"]
-            arena_b.grad_accum.add_(ga_c)
-            arena_b.grad_accum_abs.add_(ga_c)
-            arena_b.denom.add_(den_c)
-            torch.maximum(arena_b.max_radii, mr_c, out=arena_b.max_radii)
-            losses.append(l.mean())
+            bins = bin_window(params, alive, w2c_all[vi], K4, rcfg) \
+                if m_iters > 1 else None
+            gdns = depth_to_normal(self._depth(vi), K4)
+            for _ in range(m_iters):
+                with torch.enable_grad():
+                    l, gp_sum, ga_c, den_c, mr_c, gpes, w2cs = \
+                        self._gba_batch(params, alive, w2c_all, expa_all,
+                                        expb_all, vi, gdns, bins)
+                adam_b.step(params, {k: g / k_batch
+                                     for k, g in gp_sum.items()},
+                            self._lrs())
+                # per-view Adam on pose delta + exposure (the batch's views
+                # are distinct, so the row updates do not collide)
+                t_vi = pv_t[vi] + 1
+                bc1 = 1 - 0.9 ** t_vi.float()
+                bc2 = 1 - 0.999 ** t_vi.float()
+                pose_exp = {"t": torch.zeros(k_batch, 3, device=dev),
+                            "r": torch.zeros(k_batch, 3, device=dev),
+                            "a": expa_all[vi], "b": expb_all[vi]}
+                new_pe = {}
+                for k in pose_exp:
+                    ex = (1,) * (gpes[k].dim() - 1)
+                    mk = 0.9 * pv_m[k][vi] + 0.1 * gpes[k]
+                    vk = 0.999 * pv_v[k][vi] + 0.001 * gpes[k] ** 2
+                    pv_m[k][vi] = mk
+                    pv_v[k][vi] = vk
+                    new_pe[k] = pose_exp[k] - lrs_pe[k] \
+                        * (mk / bc1.reshape((-1,) + ex)) \
+                        / (torch.sqrt(vk / bc2.reshape((-1,) + ex)) + 1e-8)
+                pv_t[vi] = t_vi
+                w2c_all[vi] = se3_delta_to_matrix(new_pe["t"],
+                                                  new_pe["r"]) @ w2cs
+                expa_all[vi] = new_pe["a"]
+                expb_all[vi] = new_pe["b"]
+                arena_b.grad_accum.add_(ga_c)
+                arena_b.grad_accum_abs.add_(ga_c)
+                arena_b.denom.add_(den_c)
+                torch.maximum(arena_b.max_radii, mr_c, out=arena_b.max_radii)
+                losses.append(l.mean())
         self.adam.t = adam_b.t
         self.cams.w2c.copy_(w2c_all)
         self.cams.exposure_a.copy_(expa_all)
         self.cams.exposure_b.copy_(expb_all)
-        return torch.stack(losses).mean()
+        return torch.stack(losses)
 
     def global_ba(self, total_iters: int, densify: bool = True, **draws):
         for _ in self.global_ba_steps(total_iters, densify, **draws):
             pass
 
+    def gba_plan(self, total_iters: int, n_views: int):
+        """(k, m, blocks per segment, segments) of a global BA over
+        ``total_iters`` view renders: k = min(gba_views_per_iter, n_views)
+        views a step, ceil(total / k) steps in blocks of m, whole segments
+        of ``gba_segment // m`` blocks."""
+        cfg = self.cfg
+        k = max(1, min(cfg.gba_views_per_iter, n_views))
+        m = max(1, cfg.gba_resample_every)
+        n_steps = max(1, -(-total_iters // k))
+        blocks_per_seg = max(1, cfg.gba_segment // m)
+        n_blocks = max(1, -(-n_steps // m))
+        return k, m, blocks_per_seg, max(1, -(-n_blocks // blocks_per_seg))
+
     def global_ba_steps(self, total_iters: int, densify: bool = True,
                         view_idx: Optional[Sequence] = None,
                         split_noise=None):
-        """GENERATOR yielding after each ``gba_segment`` of one-view
-        iterations (a full segment always runs, like the JAX package).
-        ``view_idx``: optional per-segment (gba_segment, 1) view draws;
-        ``split_noise``: optional (capacity, 3) densify noise. Absent ones
-        are drawn from ``self.gen``."""
+        """GENERATOR yielding after each segment (a whole segment always
+        runs, as in the JAX package). ``total_iters`` counts view renders:
+        with k views a step the Gaussian Adam step count drops k-fold
+        while each view's pose/exposure still updates per render.
+        ``view_idx``: optional per-segment (blocks per segment, k) view
+        draws; ``split_noise``: optional (capacity, 3) densify noise.
+        Absent ones are drawn from ``self.gen`` (k distinct views a
+        block). The per-step losses of the call land in ``gba_losses``."""
         cfg, dev = self.cfg, self.device
         valid = self.cams.valid.cpu().numpy()
         view_ids = [i for i in range(cfg.cam_capacity) if valid[i]]
+        self.gba_losses = []
         if not view_ids or total_iters <= 0:
             return
-        seg = cfg.gba_segment
-        n_segs = max(1, (total_iters + seg - 1) // seg)
+        k, _, blocks_per_seg, n_segs = self.gba_plan(total_iters,
+                                                     len(view_ids))
         ids = torch.as_tensor(view_ids, dtype=torch.long)
         for s in range(n_segs):
             if view_idx is not None:
                 vi = torch.tensor(np.asarray(view_idx[s]), dtype=torch.long)
             else:
-                vi = ids[torch.randint(len(view_ids), (seg, 1),
-                                       generator=self.gen)]
+                vi = torch.stack([
+                    ids[torch.randperm(len(view_ids), generator=self.gen)[:k]]
+                    for _ in range(blocks_per_seg)])
             arena_b, adam_b = self._sliced()
-            self._gba_segment(arena_b, adam_b, vi.to(dev))
+            self.gba_losses.append(self._gba_segment(arena_b, adam_b,
+                                                     vi.to(dev)))
             if densify and s == max(n_segs // 2 - 1, 0):
                 if split_noise is None:
                     noise = torch.randn(cfg.capacity, 3, generator=self.gen)
@@ -640,8 +725,12 @@ class MappingBackend:
 
     def run_steps(self, packet: Dict, iterations: int = 100,
                   view_idx: Optional[Sequence] = None, split_noise=None):
-        """Per-submap mapping update (sequential path): GENERATOR yielding
-        after each bounded slice of work, RETURNING the data_update dict.
+        """Per-submap mapping update: GENERATOR yielding after each bounded
+        slice of work (a pose refinement, a seeding, an optimization or
+        global-BA segment), RETURNING the data_update dict. With
+        ``parallel_kf_refine`` and more than one new keyframe after the
+        first event, the new keyframes are refined as one batch, seeded,
+        then optimized jointly; otherwise one keyframe after another.
         ``view_idx`` / ``split_noise``: optional injected global-BA draws
         (see ``global_ba_steps``)."""
         viz_idx = list(packet["viz_idx"])
@@ -653,49 +742,108 @@ class MappingBackend:
         submap_idx = int(packet["submap_idx"])
         ds = self.cfg.downsample
         valid = self.cams.valid.cpu().numpy()
+        new_pos = [i for i, idx in enumerate(viz_idx) if not valid[idx]]
 
-        for i, idx in enumerate(viz_idx):
-            if valid[idx]:
-                continue
-            w2c = w2cs[i]
-            if i > 0:
-                # chain through the refined previous pose
-                prev = viz_idx[i - 1]
-                rel = w2cs[i] @ np.linalg.inv(w2cs[i - 1])
-                w2c = rel @ self.cams.w2c[prev].cpu().numpy()
-            self.add_keyframe(idx, imgs[i], depths[i], w2c)
-            rgb_ds = imgs[i][::ds, ::ds].astype(np.float32) / 255.0
-            if not self.initialized:
-                self.seed(idx, pointmaps[i], rgb_ds, confs[i] > 0.0,
-                          submap_idx)
-                self.current_window = [idx]
-                yield from self.optimization_steps(iterations,
-                                                   self.current_window)
-                self.initialized = True
-            else:
-                if len(self.current_window) < self.cfg.window_size:
-                    self.current_window = self.current_window + [idx]
-                else:
-                    self.current_window = self.current_window[1:] + [idx]
-                pointmap, pvalid = self.pose_refine(idx)
+        if self.initialized and self.cfg.parallel_kf_refine \
+                and len(new_pos) > 1:
+            # initial poses chain through the predecessor as below, except
+            # that a predecessor new in this event gives its INIT pose (its
+            # refinement has not run yet; the joint window optimization
+            # afterwards couples the poses again)
+            init_w2c = {}
+            for i in new_pos:
+                w2c = w2cs[i]
+                if i > 0:
+                    rel = w2cs[i] @ np.linalg.inv(w2cs[i - 1])
+                    base = init_w2c[i - 1] if i - 1 in init_w2c \
+                        else self.cams.w2c[viz_idx[i - 1]].cpu().numpy()
+                    w2c = rel @ base
+                init_w2c[i] = w2c
+                self.add_keyframe(viz_idx[i], imgs[i], depths[i], w2c)
+            new_idxs = [viz_idx[i] for i in new_pos]
+            with self._tm("map_refine"):
+                pms, vals = self.pose_refine_multi(new_idxs)
+            yield "refine"
+            with self._tm("map_seed"):
+                pms, vals = pms.cpu().numpy(), vals.cpu().numpy()
+                for j, i in enumerate(new_pos):
+                    idx = viz_idx[i]
+                    rgb_ds = imgs[i][::ds, ::ds].astype(np.float32) / 255.0
+                    self.seed(idx, pms[j], rgb_ds, vals[j], submap_idx)
+                    self._push_window(idx)
+            yield "seed"
+            # the sequential path's per-keyframe iteration budget
+            yield from self._timed_steps("map_window", self.optimization_steps(
+                self.cfg.window_opt_iters * len(new_pos),
+                self.current_window))
+            if self.cfg.new_view_opt_iters > 0:
+                # the per-view losses are independent: polishing the new
+                # keyframes jointly is the sequential polish of each
+                yield from self._timed_steps(
+                    "map_polish", self.optimization_steps(
+                        self.cfg.new_view_opt_iters, new_idxs,
+                        optimize_pose=False))
+        else:
+            for i in new_pos:
+                idx = viz_idx[i]
+                w2c = w2cs[i]
+                if i > 0:
+                    # chain through the refined previous pose
+                    rel = w2cs[i] @ np.linalg.inv(w2cs[i - 1])
+                    w2c = rel @ self.cams.w2c[viz_idx[i - 1]].cpu().numpy()
+                self.add_keyframe(idx, imgs[i], depths[i], w2c)
+                rgb_ds = imgs[i][::ds, ::ds].astype(np.float32) / 255.0
+                if not self.initialized:
+                    with self._tm("map_seed"):
+                        self.seed(idx, pointmaps[i], rgb_ds, confs[i] > 0.0,
+                                  submap_idx)
+                    self.current_window = [idx]
+                    yield from self._timed_steps(
+                        "map_window", self.optimization_steps(
+                            iterations, self.current_window))
+                    self.initialized = True
+                    continue
+                self._push_window(idx)
+                with self._tm("map_refine"):
+                    pointmap, pvalid = self.pose_refine(idx)
                 yield "refine"
-                self.seed(idx, pointmap.cpu().numpy(), rgb_ds,
-                          pvalid.cpu().numpy(), submap_idx)
-                yield from self.optimization_steps(self.cfg.window_opt_iters,
-                                                   self.current_window)
+                with self._tm("map_seed"):
+                    self.seed(idx, pointmap.cpu().numpy(), rgb_ds,
+                              pvalid.cpu().numpy(), submap_idx)
+                yield from self._timed_steps(
+                    "map_window", self.optimization_steps(
+                        self.cfg.window_opt_iters, self.current_window))
                 if self.cfg.new_view_opt_iters > 0:
-                    yield from self.optimization_steps(
-                        self.cfg.new_view_opt_iters,
-                        [self.current_window[-1]], optimize_pose=False)
+                    yield from self._timed_steps(
+                        "map_polish", self.optimization_steps(
+                            self.cfg.new_view_opt_iters,
+                            [self.current_window[-1]], optimize_pose=False))
 
         n_views = int(self.cams.valid.sum())
-        yield from self.global_ba_steps(self.cfg.gba_per_view * n_views,
-                                        densify=True, view_idx=view_idx,
-                                        split_noise=split_noise)
-        return self.data_update(self.current_window)
+        yield from self._timed_steps("map_gba", self.global_ba_steps(
+            self.cfg.gba_per_view * n_views, densify=True, view_idx=view_idx,
+            split_noise=split_noise))
+        with self._tm("map_update"):
+            return self.data_update(self.current_window)
+
+    def _push_window(self, idx: int):
+        """Append a keyframe to the sliding window (oldest out when full)."""
+        w = self.current_window
+        self.current_window = (w if len(w) < self.cfg.window_size
+                               else w[1:]) + [idx]
 
     def finalize(self, iters: int = 2000, **draws):
         self.global_ba(iters, densify=True, **draws)
+
+    @torch.no_grad()
+    @full_f32()
+    def eval_view(self, idx: int) -> float:
+        """PSNR of one keyframe's render against its stored image."""
+        arena_b, _ = self._sliced()
+        img = render_view(arena_b.params(), arena_b.alive, self.cams.w2c[idx],
+                          self.K4, self.raster_cfg)["color"]
+        mse = float(((img - self._img(idx)) ** 2).mean())
+        return -10.0 * np.log10(max(mse, 1e-12))
 
     # ------------------------------------------------------------------
     # checkpointing: the JAX package's npz keys

@@ -20,7 +20,7 @@ from .camera import se3_delta_to_matrix
 from .gaussian_map import SH2RGB
 
 __all__ = ["render_view", "render_window", "transform_to_frame", "bin_view",
-           "quat_mult_wxyz"]
+           "bin_window", "quat_mult_wxyz"]
 
 
 def quat_mult_wxyz(q1, q2):
@@ -98,3 +98,16 @@ def bin_view(params, alive, w2c_base, K4, cfg: RasterizeConfig,
         params, _posed(w2c_base, trans_delta, rot_delta))
     scales, opac, _ = _attrs(params, alive)
     return compute_bins(means_cam, quats_cam, scales, opac, K4, cfg)
+
+
+def bin_window(params, alive, w2cs, K4, cfg: RasterizeConfig,
+               trans_deltas=None, rot_deltas=None):
+    """``bin_view`` of each of V views (w2cs (V, 4, 4), optional (V, 3)
+    deltas), stacked into the ``bins`` that ``render_window`` takes."""
+    bins = [bin_view(params, alive, w2cs[v], K4, cfg,
+                     trans_delta=None if trans_deltas is None
+                     else trans_deltas[v],
+                     rot_delta=None if rot_deltas is None else rot_deltas[v])
+            for v in range(w2cs.shape[0])]
+    return (torch.stack([b[0] for b in bins]),
+            torch.stack([b[1] for b in bins]))

@@ -1,5 +1,7 @@
-"""Headless map dumps (port of ``save_pcd_ply`` / ``save_gaussians_ply``
-from ``cut3r_slam_tpu/utils/viz.py``)."""
+"""Headless dumps (port of ``save_image``, ``save_depth_png``,
+``save_pcd_ply`` and ``save_gaussians_ply`` from
+``cut3r_slam_tpu/utils/viz.py``): images, colourized depth, point-cloud
+and Gaussian PLYs."""
 from __future__ import annotations
 
 import os
@@ -7,7 +9,39 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["save_pcd_ply", "save_gaussians_ply"]
+__all__ = ["save_image", "save_depth_png", "save_pcd_ply",
+           "save_gaussians_ply"]
+
+
+def save_image(path: str, arr: np.ndarray):
+    """Write an image array (uint8 RGB / gray or uint16 depth) with cv2."""
+    import cv2
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if arr.ndim == 3 and arr.shape[-1] == 3:
+        arr = cv2.cvtColor(arr, cv2.COLOR_RGB2BGR)
+    cv2.imwrite(path, arr)
+
+
+def _turbo(x: np.ndarray) -> np.ndarray:
+    """Compact turbo-like colormap for depth viz."""
+    x = np.clip(x, 0, 1)
+    r = np.clip(1.6 - np.abs(4 * x - 3.2), 0, 1)
+    g = np.clip(1.6 - np.abs(4 * x - 1.8), 0, 1)
+    b = np.clip(1.6 - np.abs(4 * x - 0.6), 0, 1)
+    return np.stack([r, g, b], -1)
+
+
+def save_depth_png(path: str, depth: np.ndarray, colorize: bool = True):
+    """Depth as an 8-bit PNG: turbo-coloured over its positive range, or
+    gray (depth x 255, clipped)."""
+    d = np.asarray(depth, np.float32)
+    if colorize:
+        v = d[d > 0]
+        lo, hi = (v.min(), v.max()) if v.size else (0, 1)
+        img = (_turbo((d - lo) / max(hi - lo, 1e-6)) * 255).astype(np.uint8)
+    else:
+        img = np.clip(d * 255, 0, 255).astype(np.uint8)
+    save_image(path, img)
 
 
 def save_pcd_ply(path: str, points: np.ndarray,

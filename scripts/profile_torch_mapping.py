@@ -14,8 +14,10 @@ chip_smoke.py:
   max_per_tile 512) with six keyframes of the synthetic panorama, two of
   them seeded as a textured plane (~2 x 49k Gaussians alive), timing one
   iteration of each step kind: a 6-view window optimization, a one-view
-  global-BA iteration and a pose refinement (which also re-bins once and
-  renders its seeding pass);
+  global-BA iteration, a pose refinement (which also re-bins once and
+  renders its seeding pass), the batched pose refinement of five views
+  (``parallel_kf_refine``) and one global-BA block of the production
+  schedule (4 views a step, 4 steps sharing one binning);
 * loop closure, at the shapes of chip_smoke.py's phase 7: one
   ``pgo_align`` over 3 submaps of 192x256 pointmaps (200 of its 2000
   Adam iterations), one ``gaussian_update`` of the mapping backend above
@@ -106,13 +108,26 @@ def mapping_steps(imgs):
             be.seed(i, pts, img[::2, ::2] / 255.0, np.ones(xx.shape, bool), i)
     be.initialized = True
     window = list(range(len(imgs)))
+
+    def gba_block():
+        import dataclasses
+        base = be.cfg
+        be.cfg = dataclasses.replace(base, gba_views_per_iter=4,
+                                     gba_resample_every=4, gba_segment=4)
+        try:
+            be.global_ba(16, densify=False)
+        finally:
+            be.cfg = base
     return be, {
         f"window V={len(window)} (opt + pose), 1 iteration":
             lambda: be.optimization(1, window),
         "global BA, 1 view, 1 iteration":
             lambda: be.global_ba(1, densify=False),
         "pose refine, 1 view, 1 iteration + seeding render":
-            lambda: be.pose_refine(len(window) - 1)}
+            lambda: be.pose_refine(len(window) - 1),
+        "pose refine batched, 5 views, 1 iteration + seeding render":
+            lambda: be.pose_refine_multi(window[1:]),
+        "global BA block, 4 views x 4 steps, one binning": gba_block}
 
 
 def loop_closure_steps(be):
