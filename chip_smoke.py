@@ -58,6 +58,30 @@ Phases (any failure exits nonzero, and no result line is printed):
    depth per keyframe, no frame without a new submap ran more than 3
    mapping slices, K1 and K2 launched inside the batched refine and the
    batched global BA, and all state is finite;
+9. CUT3R training at full width (``CUT3RConfig()`` with the self, cross,
+   rgb and pose heads, random weights from seed 0, bf16 compute over f32
+   master weights, f32 gradients and AdamW state) on procedural scenes
+   written at 384x512 (``generate_multiview_scenes`` ->
+   ``SceneFolderSource`` -> ``MultiViewDataset`` -> ``make_batch_iter``):
+   first the tiny model card vs CPU (f32, no TF32): three
+   ``make_train_step`` steps and one truncated-BPTT step from the same
+   weights and batches, losses within 1e-5 relative, the gradient of
+   every parameter tensor (Adam's first moment after each step taken at
+   the starting weights) within 1e-4 of its norm plus 1e-6 of the
+   largest tensor's, parameters within
+   1e-5 on all but 1e-4 of the elements and the rest within two Adam
+   steps, and three steps of ``train`` on the card giving the same
+   losses; then step A, ``make_train_step`` on one V=4 batch repeated for
+   10 steps (warmup 2 of 10), whose loss at step 10 must be below its
+   loss at step 2 (the first update is zero by the schedule); then step
+   B, from the same initial weights and schedule, three
+   ``make_tbptt_train_step`` steps over V=16 in chunks of 4 with
+   gradient through the last, weight decay 0: every encoder and
+   patch-embedding tensor must stay bitwise unchanged and the decoder
+   must move. The random weights are the package's training init
+   (``init_train_state`` / ``init_trainable``: ``init_random`` with the
+   pointmap heads' last convolution scaled by 0.05). Every loss
+   must be finite, and K1 and K2 must not launch;
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -79,8 +103,10 @@ from the kernel bodies (FLOPS_PER_PAIR, MUFU_PER_PAIR).
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1003,6 +1029,280 @@ def demo_phase(model, frames, K4, G, card):
     return launches, max(ft)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: CUT3R training
+# ---------------------------------------------------------------------------
+
+TRAIN_HW = (384, 512)
+# procedural scenes of 18 views; the sampler's span of 16 never reaches
+# past a scene, so no view repeats (views that share one pose leave the
+# translation loss dividing rounding by rounding)
+TRAIN_SCENE_VIEWS, TRAIN_SPAN = 18, 16
+
+
+def training_scenes(root, hw, n_scenes, seed):
+    from cut3r_slam_tpu_torch.datasets import generate_multiview_scenes
+    return generate_multiview_scenes(root, n_scenes=n_scenes,
+                                     views_per_scene=TRAIN_SCENE_VIEWS,
+                                     hw=hw, seed=seed)
+
+
+def training_batches(dirs, hw, num_views, seed):
+    """make_batch_iter over the scenes ``dirs``: one ``MultiViewDataset``
+    per scene, joined with ``+``."""
+    from cut3r_slam_tpu_torch.datasets import (
+        MultiViewDataset, SceneFolderSource, SceneLayout, make_batch_iter)
+    parts = [MultiViewDataset(
+        SceneFolderSource(os.path.dirname(d), SceneLayout("synth"),
+                          scenes=[os.path.basename(d)]),
+        num_views=num_views, span=TRAIN_SPAN, resolution=hw, seed=seed + i)
+        for i, d in enumerate(dirs)]
+    ds = parts[0]
+    for part in parts[1:]:
+        ds = ds + part
+    return make_batch_iter(ds, batch_size=1, seed=seed)
+
+
+def params_agree(ref, got, lrs):
+    """Every parameter element within 1e-5 absolute of ``ref`` but for at
+    most 1e-4 of the model's elements, and those within two full Adam
+    steps (2 * the summed learning rates): Adam divides each gradient
+    element by its own magnitude, so an element whose gradient lies at
+    the f32 rounding floor takes a step of either sign. Returns (max
+    |diff|, elements beyond 1e-5, elements) or fails."""
+    diff = [(got[k].detach().cpu() - v).abs() for k, v in ref.items()]
+    far = sum(int((d > 1e-5).sum()) for d in diff)
+    n = sum(d.numel() for d in diff)
+    worst = max(float(d.max()) for d in diff)
+    if far > 1e-4 * n or worst > 2 * sum(lrs) + 1e-6:
+        fail(f"phase 9: card vs cpu parameters: {far} of {n} elements "
+             f"beyond 1e-5, max {worst:.3e}")
+    return worst, far, n
+
+
+def grads_agree(ref, got, what):
+    """Adam's first moments (name -> tensor; means of clipped gradients
+    taken at the same params on both sides): the norm of each tensor's
+    difference within 1e-4 of its norm in ``ref`` plus 1e-6 x the largest
+    tensor's. Below that floor a gradient is zero up to rounding (a key
+    bias, to which the softmax is invariant; the encoder under TBPTT),
+    and a tensor whose reference lies there must lie there in ``got``
+    too; just above it the card's atomics move a small bias's rounding
+    from run to run. Returns the worst difference over (the tensor's
+    norm + the floor) or fails."""
+    rtol, floor = 1e-4, 1e-6
+    top = max(float(v.norm()) for v in ref.values())
+    worst = 0.0
+    for k, r in ref.items():
+        rn, g = float(r.norm()), got[k]
+        if rn <= floor * top:
+            if float(g.norm()) > floor * top:
+                fail(f"phase 9: {what}: {k} has a gradient on one side "
+                     f"only ({rn:.3e} vs {float(g.norm()):.3e})")
+            continue
+        rel = float((g - r).norm()) / (rn + floor * top)
+        if not rel <= rtol:
+            fail(f"phase 9: {what}: gradient of {k} differs by {rel:.3e} "
+                 f"of its norm + the floor")
+        worst = max(worst, rel)
+    return worst
+
+
+def training_card_vs_cpu(root):
+    """The tiny model's train steps on the card (f32, no TF32) and on the
+    CPU from the same weights and batches: three make_train_step steps
+    and one truncated-BPTT step. Losses within 1e-5 relative; the
+    gradient of every parameter tensor as ``grads_agree`` after each step
+    taken at the starting weights (the first two make_train_step steps:
+    the first update is zero by the schedule; the TBPTT step);
+    parameters as ``params_agree``. Then three steps of ``train`` on the
+    card from the same weights give the make_train_step losses (1e-5
+    relative)."""
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
+    from cut3r_slam_tpu_torch.train.train_step import (
+        lr_at, make_optimizer, make_tbptt_train_step, make_train_step)
+    from cut3r_slam_tpu_torch.train.trainer import TrainerConfig, train
+    hw = (32, 48)
+    dirs = training_scenes(os.path.join(root, "tiny"), hw, 1, seed=0)
+    it2 = training_batches(dirs, hw, 2, seed=0)
+    batches = [next(it2) for _ in range(3)]
+    b4 = next(training_batches(dirs, hw, 4, seed=1))
+    init = CUT3R(CUT3RConfig.tiny(), device="cpu")
+    init.init_random(torch.Generator().manual_seed(1))
+    init = {k: v.clone() for k, v in init.state_dict().items()}
+    kw = dict(lr=1e-4, weight_decay=0.05, warmup_steps=2, total_steps=10)
+    out = {}
+    with full_f32():
+        for dev in ("cpu", "cuda"):
+            m = CUT3R(CUT3RConfig.tiny(), device=dev)
+            m.load_state_dict(init)
+
+            def mu(opt):
+                return {n: opt.state[p]["mu"].cpu().clone()
+                        for n, p in m.named_parameters()}
+
+            opt = make_optimizer(m.parameters(), **kw)
+            step = make_train_step(m, opt)
+            losses, mus = [], []
+            for b in batches:
+                losses.append(float(step(b)["total"]))
+                mus.append(mu(opt))
+            m3 = {k: v.detach().cpu().clone()
+                  for k, v in m.state_dict().items()}
+            m.load_state_dict(init)
+            opt = make_optimizer(m.parameters(), **dict(kw, warmup_steps=0))
+            tb = make_tbptt_train_step(m, opt, chunk=2, grad_chunks=1)
+            out[dev] = (losses, m3, float(tb(b4)["total"]),
+                        {k: v.detach().cpu().clone()
+                         for k, v in m.state_dict().items()},
+                        mus[:2] + [mu(opt)])
+        logs = []
+        m = CUT3R(CUT3RConfig.tiny(), device="cuda")
+        train(m, iter(batches), TrainerConfig(
+            lr=kw["lr"], weight_decay=kw["weight_decay"], warmup_steps=2,
+            total_steps=3, log_every=1, ckpt_dir=os.path.join(root, "ckpt")),
+            init_params=init, log_fn=logs.append, device="cuda")
+    (lc, pc, tc, qc, mc), (lg, pg, tg, qg, mg) = out["cpu"], out["cuda"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lg + [tg], lc + [tc]))
+    if not rel <= 1e-5:
+        fail(f"phase 9: tiny losses, card {lg + [tg]} vs cpu {lc + [tc]}")
+    grads = [grads_agree(a, b, what) for a, b, what in zip(
+        mc, mg, ("step 1", "step 2", "TBPTT step"))]
+    worst3 = params_agree(pc, pg, [lr_at(i, kw["lr"], 2, 10)
+                                   for i in range(3)])
+    worst_t = params_agree(qc, qg, [kw["lr"]])
+    trained = [m_["loss"] for m_ in logs if "loss" in m_]
+    rel_train = max(abs(a - b) / abs(b) for a, b in zip(trained, lg))
+    # the trainer logs losses rounded to 5 decimals
+    if len(trained) != 3 or not all(abs(a - b) <= 1e-5 * abs(b) + 5e-6
+                                    for a, b in zip(trained, lg)):
+        fail(f"phase 9: train() on the card logged {trained}, "
+             f"make_train_step {lg}")
+    return {"tiny losses card vs cpu, max rel": rel,
+            "tiny gradients (Adam first moments) of steps 1, 2 and TBPTT, "
+            "worst tensor's diff / (norm + floor)": grads,
+            "tiny params after 3 steps, max abs / beyond 1e-5": worst3,
+            "tiny params after TBPTT, max abs / beyond 1e-5": worst_t,
+            "train() vs make_train_step on the card, max rel": rel_train}
+
+
+def training_phase(G, card):
+    """Phase 9 (see the module docstring). Returns the kernels' launches
+    in the phase (both must be 0)."""
+    import torch
+    from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
+    from cut3r_slam_tpu_torch.train.train_step import (
+        init_train_state, init_trainable, make_optimizer,
+        make_tbptt_train_step, make_train_step)
+    from cut3r_slam_tpu_torch.train.trainer import TrainerConfig
+    for k in G.LAUNCHES:
+        G.LAUNCHES[k] = 0
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_",
+                            dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    for k, v in training_card_vs_cpu(root).items():
+        log(f"[train] {k}: {v}")
+    log(f"[train] tiny card vs cpu in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    dirs = training_scenes(os.path.join(root, "full"), TRAIN_HW, 2, seed=0)
+    fixed = next(training_batches(dirs, TRAIN_HW, 4, seed=0))
+    it16 = training_batches(dirs, TRAIN_HW, 16, seed=1)
+    b16 = [next(it16) for _ in range(3)]
+    log(f"[train] data: {len(dirs)} procedural scenes of "
+        f"{TRAIN_SCENE_VIEWS} views at {TRAIN_HW[0]}x{TRAIN_HW[1]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # step A: make_train_step on one fixed V=4 batch, repeated, from the
+    # package's training init (train()'s own when it is given no weights)
+    tc = TrainerConfig(warmup_steps=2, total_steps=10)
+    model = CUT3R(CUT3RConfig(), device="cuda")
+    opt = init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(tc.seed),
+        lr=tc.lr, weight_decay=tc.weight_decay,
+        warmup_steps=tc.warmup_steps, total_steps=tc.total_steps)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    log(f"[train] CUT3R {n_params / 1e6:.1f} M params (all four heads, "
+        f"init_train_state from seed {tc.seed}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    step = make_train_step(model, opt)
+    V = fixed["imgs"].shape[0]
+    losses, secs = [], []
+    for _ in range(tc.total_steps):
+        t1 = time.perf_counter()
+        aux = step(fixed)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        losses.append(float(aux["total"]))
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.isfinite(losses).all():
+        fail(f"phase 9: non-finite step A losses {losses}")
+    if not losses[9] < losses[1]:
+        fail(f"phase 9: the fitted batch's loss did not fall from step 2 "
+             f"to step 10: {losses}")
+    sa = float(np.mean(secs[1:]))
+    log(f"[train] step A (make_train_step, V={V}, B=1, "
+        f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, one batch repeated): losses "
+        f"{[round(x, 5) for x in losses]}")
+    log(f"[train] step A: {sa:.3f} s per step after the first "
+        f"({secs[0]:.2f} s), {V / sa:.2f} views/s, peak "
+        f"{peak_a:.2f} GiB (with {base_gb:.2f} GiB held before the phase) "
+        f"| {card}")
+
+    # step B: truncated BPTT over V=16, chunks of 4, the last with
+    # gradient, from the same initial weights and schedule as step A;
+    # weight decay 0, so the encoder must stay bitwise unchanged
+    del opt, step
+    torch.cuda.empty_cache()
+    init_trainable(model,
+                   torch.Generator(device="cuda").manual_seed(tc.seed))
+    torch.cuda.reset_peak_memory_stats()
+    enc = {k: v.clone() for k, v in model.state_dict().items()
+           if k.startswith(("enc_", "patch_embed."))}
+    dec = {k: v.clone() for k, v in model.state_dict().items()
+           if k.startswith("dec_blocks")}
+    opt = make_optimizer(model.parameters(), tc.lr, 0.0, tc.warmup_steps,
+                         tc.total_steps)
+    step = make_tbptt_train_step(model, opt, chunk=4, grad_chunks=1)
+    tl, ts = [], []
+    for b in b16:
+        t1 = time.perf_counter()
+        aux = step(b)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t1)
+        tl.append(float(aux["total"]))
+    peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+    V16 = b16[0]["imgs"].shape[0]
+    if not np.isfinite(tl).all():
+        fail(f"phase 9: non-finite TBPTT losses {tl}")
+    sd = model.state_dict()
+    if not all(torch.equal(sd[k], v) for k, v in enc.items()):
+        fail("phase 9: a TBPTT step changed an encoder parameter")
+    if all(torch.equal(sd[k], v) for k, v in dec.items()):
+        fail("phase 9: TBPTT steps left the decoder unchanged")
+    sb = float(np.mean(ts[1:]))
+    log(f"[train] step B (make_tbptt_train_step, V={V16}, chunk 4, "
+        f"grad_chunks 1): losses {[round(x, 5) for x in tl]}; encoder "
+        f"({len(enc)} tensors) bitwise unchanged, decoder moved")
+    log(f"[train] step B: {sb:.3f} s per step after the first "
+        f"({ts[0]:.2f} s), {V16 / sb:.2f} views/s, peak {peak_b:.2f} GiB "
+        f"| {card}")
+    launches = dict(G.LAUNCHES)
+    if any(launches.values()):
+        fail(f"phase 9: a blend kernel launched during training: {launches}")
+    log(f"[train] kernel launches in phase 9: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def kernel_phases(G, card):
     """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
     scene, the staging-edge scene and at the mapping shape (V = 1 and 10,
@@ -1205,6 +1505,12 @@ def main():
         f"{demo_max:.2f} s interleaved, production schedule (phase 8); not "
         f"a paired comparison | {card}")
 
+    # 9. CUT3R training (the SLAM phases' state released first) -------------
+    del slam, model, m, kf, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = training_phase(G, card)
+
     kernels = []
     for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
                            ("gs_blend_bwd", ":241 _blend_bwd_kernel")):
@@ -1217,7 +1523,8 @@ def main():
             "launches_by_path": {"live": launches[name],
                                  "loop_closure": lc_launches[name],
                                  "demo_production_schedule":
-                                     demo_launches[name]},
+                                     demo_launches[name],
+                                 "training": train_launches[name]},
             "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})

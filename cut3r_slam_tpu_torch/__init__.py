@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of ``cut3r_slam_tpu`` for NVIDIA Hopper (H100).
 
 Same subpackage layout and public surface as the JAX package
-(``geometry/ ops/ models/ slam/ utils/``): ``SLAMSystem.run/terminate``,
-``MappingBackend``, ``CUT3R``, ``rasterize*``. The two TPU tile-blend
+(``geometry/ ops/ models/ slam/ train/ datasets/ utils/``):
+``SLAMSystem.run/terminate``, ``MappingBackend``, ``CUT3R``,
+``rasterize*``, ``train``. The two TPU tile-blend
 kernels of ``ops/gs_raster_pallas.py`` are hand-written CUDA kernels here
 (``csrc/gs_blend_fwd.cu``, ``csrc/gs_blend_bwd.cu``), built with ``nvcc``
 on first CUDA use (``kernels/build.py``); every kernel has a plain PyTorch

@@ -1,7 +1,9 @@
 """Transformer building blocks (port of ``cut3r_slam_tpu/models/blocks.py``):
-Mlp, Attention / CrossAttention (optional RoPE2D on q/k), Block and
-DecoderBlock. Module and parameter names follow the upstream torch
-state_dict (``attn.qkv``, ``cross_attn.projq``, ``norm_y``, ``mlp.fc1``...).
+Mlp, Attention / CrossAttention (optional RoPE2D on q/k), Block,
+DecoderBlock, and ModLN / ConditionModulationBlock (adaLN conditioning on
+the pose token, used by the DPT cross head). Module and parameter names
+follow the upstream torch state_dict (``attn.qkv``, ``cross_attn.projq``,
+``norm_y``, ``mlp.fc1``...).
 
 Numerics follow the JAX model's flax dtypes: weights are stored f32 and
 each Linear casts its input and weights to ``dtype`` (bf16 on the card at
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 from .rope import apply_rope2d
 
 __all__ = ["Linear", "LayerNorm", "Mlp", "Attention", "CrossAttention",
-           "Block", "DecoderBlock"]
+           "Block", "DecoderBlock", "ModLN", "ConditionModulationBlock"]
 
 
 class Linear(nn.Linear):
@@ -103,6 +105,13 @@ class CrossAttention(nn.Module):
         Nk = key.shape[1]
         H = self.num_heads
         D = C // H
+        if Nk == 1:
+            # one key: the softmax is exactly 1, every query reads the one
+            # value, and q / k get exactly zero gradient (as in the JAX
+            # model's softmax; a fused attention's backward leaves
+            # rounding noise there, which Adam would turn into steps)
+            v = self.projv(value)
+            return self.proj(v.expand(B, Nq, C))
         q = self.projq(query).reshape(B, Nq, H, D).transpose(1, 2)
         k = self.projk(key).reshape(B, Nk, H, D).transpose(1, 2)
         v = self.projv(value).reshape(B, Nk, H, D).transpose(1, 2)
@@ -153,3 +162,35 @@ class DecoderBlock(nn.Module):
         x = x + self.cross_attn(self.norm2(x), y_, y_, xpos, ypos)
         x = x + self.mlp(self.norm3(x))
         return x, y
+
+
+class ModLN(nn.Module):
+    """adaLN modulation: LayerNorm(x) * (1 + scale) + shift, with
+    (shift, scale) = Linear(SiLU(mod)) split in two. ``mod`` is (B, C)."""
+
+    def __init__(self, dim, mod_dim=None, dtype=torch.float32):
+        super().__init__()
+        self.norm = LayerNorm(dim)
+        self.mlp = nn.Sequential(nn.SiLU(), Linear(mod_dim or dim, 2 * dim,
+                                                   dtype=dtype))
+
+    def forward(self, x, mod):
+        shift, scale = self.mlp(mod).chunk(2, dim=-1)
+        return self.norm(x) * (1 + scale[:, None]) + shift[:, None]
+
+
+class ConditionModulationBlock(nn.Module):
+    """Self-attention block whose two norms are ``ModLN`` conditioned on a
+    pose token."""
+
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, use_rope=False,
+                 rope_base=100.0, dtype=torch.float32):
+        super().__init__()
+        self.norm1 = ModLN(dim, dtype=dtype)
+        self.attn = Attention(dim, num_heads, use_rope, rope_base, dtype)
+        self.norm2 = ModLN(dim, dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+
+    def forward(self, x, mod, xpos):
+        x = x + self.attn(self.norm1(x, mod), xpos)
+        return x + self.mlp(self.norm2(x, mod))

@@ -6,10 +6,11 @@ model's flax params (``params_from_jax``).
 (``cut3r_slam_tpu/models/convert.py``): unwrap ``ckpt["model"]``, strip
 ``module.``, alias ``dec_blocks`` as ``dec_blocks_state`` when the latter
 is absent, and skip the training-only ``mask_generator`` /
-``enc_pos_embed`` / ``dec_pos_embed`` / ``mask_token``. Keys of modules
-the port does not hold (``CKPT_SKIP``) are dropped by name; every other
-key goes into the state_dict as it is, so ``model.load_state_dict``
-(strict) raises on any key that is unexpected or missing.
+``enc_pos_embed`` / ``dec_pos_embed`` / ``mask_token``. Those and the
+never-run first residual unit of each DPT's ``refinenet4`` are the only
+keys dropped (``CKPT_SKIP``); every other key goes into the state_dict as
+it is, so ``model.load_state_dict`` (strict) raises on any key that is
+unexpected or missing.
 
 ``params_from_jax(flat)`` takes the JAX model's params flattened to numpy
 with ``/``-joined paths (``flax.traverse_util.flatten_dict(params["params"],
@@ -22,9 +23,7 @@ JAX package's torch -> flax converter):
 * ConvTranspose kernel (kh, kw, out, in) (``transpose_kernel=True``) ->
   ConvTranspose2d weight (in, out, kh, kw)
 * LayerNorm scale -> weight; Embed embedding -> weight
-
-Params of modules the port does not build yet (the ray-map encoder, the
-masked tokens, the cross / rgb heads) are skipped.
+* ModLN's ``mlp_1`` (the Linear after the SiLU) -> ``mlp.1``
 """
 from __future__ import annotations
 
@@ -44,24 +43,17 @@ CKPT_SKIP = {
     "enc_pos_embed": "unused: positions are RoPE",
     "dec_pos_embed": "unused: positions are RoPE",
     "mask_token": "training-time masking",
-    # modules the port does not build yet (ROADMAP §1 item 7)
-    "patch_embed_ray_map.": "ray-map encoder",
-    "enc_blocks_ray_map.": "ray-map encoder",
-    "enc_norm_ray_map.": "ray-map encoder",
-    "masked_img_token": "ray-map / image token masking",
-    "masked_ray_map_token": "ray-map / image token masking",
-    "downstream_head.dpt_cross.": "cross-view pointmap head",
-    "downstream_head.dpt_rgb.": "rgb head",
-    "downstream_head.final_transform.": "rgb / cross heads' transforms",
-    # dead in the upstream module too: refinenet4 fuses one input, so it
-    # never runs its first residual unit
-    "downstream_head.dpt_self.scratch.refinenet4.resConfUnit1.":
-        "unused by the upstream DPT",
 }
+# dead in the upstream module too: refinenet4 fuses one input, so it never
+# runs its first residual unit
+CKPT_SKIP.update({
+    f"downstream_head.{h}.scratch.refinenet4.resConfUnit1.":
+        "unused by the upstream DPT" for h in ("dpt_self", "dpt_cross",
+                                               "dpt_rgb")})
 # ModuleList alias of the same tensors (upstream dpt_block registers
 # scratch.layer_rn = [layer1_rn, ..., layer4_rn])
-_RN_ALIAS = re.compile(r"^(downstream_head\.dpt_self\.scratch\.)layer_rn\."
-                       r"(\d)\.(.*)$")
+_RN_ALIAS = re.compile(r"^(downstream_head\.dpt_(?:self|cross|rgb)\."
+                       r"scratch\.)layer_rn\.(\d)\.(.*)$")
 
 
 def _skipped(key: str) -> bool:
@@ -74,8 +66,9 @@ _ACT = {"act_1_conv": "act_postprocess.0.0", "act_1_deconv": "act_postprocess.0.
         "act_3_conv": "act_postprocess.2.0", "act_4_conv": "act_postprocess.3.0",
         "act_4_downconv": "act_postprocess.3.1"}
 _HEAD = {"head_0": "head.0", "head_2": "head.2", "head_4": "head.4"}
-_LIST = re.compile(r"^(enc_blocks|dec_blocks|dec_blocks_state|write_blocks|"
-                   r"read_blocks)_(\d+)$")
+_LIST = re.compile(r"^(enc_blocks|enc_blocks_ray_map|dec_blocks|"
+                   r"dec_blocks_state|write_blocks|read_blocks|"
+                   r"final_transform)_(\d+)$")
 
 
 def _segment(seg: str) -> str:
@@ -86,6 +79,8 @@ def _segment(seg: str) -> str:
         return _ACT[seg]
     if seg in _HEAD:
         return _HEAD[seg]
+    if seg == "mlp_1":      # ModLN's Sequential(SiLU, Linear)
+        return "mlp.1"
     if re.fullmatch(r"layer\d_rn|refinenet\d", seg):
         return f"scratch.{seg}"
     return seg

@@ -1,6 +1,9 @@
-"""Prediction heads (port of the parts of ``cut3r_slam_tpu/models/heads.py``
-the SLAM tracking path calls, ``head_outputs=("self", "pose")``): the DPT
-self-pointmap pyramid, the pose MLP, and their activations.
+"""Prediction heads (port of ``cut3r_slam_tpu/models/heads.py``'s DPT
+head, ``DPTPts3dPose``): the pose MLP, the DPT self-pointmap pyramid, the
+cross-view pyramid behind two pose-conditioned ``final_transform``
+blocks, the rgb pyramid, and their activations. The SLAM tracking path
+asks for ``("self", "pose")`` only; training takes all four. The linear
+head of the 224 checkpoints (``LinearPts3dPose``) is not ported.
 
 Convolutions run NCHW in f32; inputs and outputs are channels-last like
 the JAX heads. Module names follow the upstream ``DPTOutputAdapter_fix``
@@ -16,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import Mlp
+from .blocks import ConditionModulationBlock, Mlp
 
 __all__ = ["DPTAdapter", "PoseDecoder", "DPTPts3dPose", "reg_dense_depth",
            "reg_dense_conf", "postprocess_pose"]
@@ -127,8 +130,11 @@ class PoseDecoder(nn.Module):
         return self.mlp(pose_feat)
 
 
-def reg_dense_depth(xyz: torch.Tensor) -> torch.Tensor:
-    """exp mode: unit(xyz) * expm1(|xyz|) (norm clamped at 60)."""
+def reg_dense_depth(xyz: torch.Tensor, pos_z: bool = False) -> torch.Tensor:
+    """exp mode: unit(xyz) * expm1(|xyz|) (norm clamped at 60); ``pos_z``
+    flips the sign so that z >= 0."""
+    if pos_z:
+        xyz = xyz * torch.sign(xyz[..., -1:])
     d = torch.linalg.norm(xyz, dim=-1, keepdim=True)
     return xyz / torch.clamp(d, min=1e-8) * torch.expm1(torch.clamp(d, max=60.0))
 
@@ -150,30 +156,47 @@ def postprocess_pose(out: torch.Tensor) -> torch.Tensor:
 
 
 class DPTPts3dPose(nn.Module):
-    """The live head of cut3r_512_dpt_4_64, self-pointmap + pose outputs.
-    Input: 4 hook token tensors (the last carries the pose token first)."""
+    """The live head of cut3r_512_dpt_4_64. Input: 4 hook token tensors
+    (the last carries the pose token first) and the image tokens'
+    positions. ``outputs`` picks the pyramids that run."""
 
-    def __init__(self, enc_dim: int, dec_embed_dim: int):
+    def __init__(self, enc_dim: int, dec_embed_dim: int, dec_num_heads: int,
+                 has_rgb: bool = True, rope_base: float = 100.0):
         super().__init__()
+        dims = (enc_dim, dec_embed_dim, dec_embed_dim, dec_embed_dim)
+        self.has_rgb = has_rgb
         self.pose_head = PoseDecoder(dec_embed_dim)
-        self.dpt_self = DPTAdapter(
-            (enc_dim, dec_embed_dim, dec_embed_dim, dec_embed_dim), 4)
+        self.dpt_self = DPTAdapter(dims, 4)
+        self.final_transform = nn.ModuleList([
+            ConditionModulationBlock(dec_embed_dim, dec_num_heads,
+                                     use_rope=True, rope_base=rope_base)
+            for _ in range(2)])
+        self.dpt_cross = DPTAdapter(dims, 4)
+        if has_rgb:
+            self.dpt_rgb = DPTAdapter(dims, 3)
 
-    def forward(self, hook_tokens, img_h: int, img_w: int,
-                outputs=("self", "pose")):
-        unknown = set(outputs) - {"self", "pose"}
-        if unknown:
-            raise NotImplementedError(f"head outputs {sorted(unknown)} are "
-                                      "not ported yet")
-        pose_token = hook_tokens[-1][:, 0]
-        token = hook_tokens[-1][:, 1:]
+    def forward(self, hook_tokens, img_h: int, img_w: int, pos,
+                outputs=("self", "cross", "rgb", "pose")):
+        pose_token = hook_tokens[-1][:, 0].float()
+        token = hook_tokens[-1][:, 1:].float()
+        x_self = [t.float() for t in hook_tokens[:-1]] + [token]
         out = {}
         if "pose" in outputs:
-            out["camera_pose"] = postprocess_pose(
-                self.pose_head(pose_token.float()))
+            out["camera_pose"] = postprocess_pose(self.pose_head(pose_token))
         if "self" in outputs:
-            x = [t.float() for t in hook_tokens[:-1]] + [token.float()]
-            so = self.dpt_self(x, img_h, img_w)
+            so = self.dpt_self(x_self, img_h, img_w)
             out["pts3d_in_self_view"] = reg_dense_depth(so[..., :3])
             out["conf_self"] = reg_dense_conf(so[..., 3])
+        if "cross" in outputs:
+            tc = token
+            for blk in self.final_transform:
+                tc = blk(tc, pose_token, pos)
+            co = self.dpt_cross(x_self[:-1] + [tc.float()], img_h, img_w)
+            out["pts3d_in_other_view"] = reg_dense_depth(co[..., :3])
+            out["conf"] = reg_dense_conf(co[..., 3])
+        if self.has_rgb and "rgb" in outputs:
+            eps = 1e-6
+            rgb = torch.sigmoid(self.dpt_rgb(x_self, img_h, img_w)) \
+                * (1 - 2 * eps) + eps
+            out["rgb"] = (rgb - 0.5) * 2
         return out

@@ -188,8 +188,12 @@ def profile_step(name, fn, wall_ms, card):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # kernel rows only: a user annotation (the optimizer's
+    # ``Optimizer.step#...`` range) also lands on the device timeline
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     print(f"[profile] {name}: {launches} kernel launches, device {total:.2f} "

@@ -73,13 +73,13 @@ def test_list_images_keeps_mixed_names(tmp_path):
         "img_1.png", "img_2.png", "rgb_0.png")]
 
 
-# upstream-only keys, one per skipped prefix family
-_EXTRA = ("patch_embed_ray_map.proj.weight",
-          "enc_blocks_ray_map.0.norm1.weight", "enc_norm_ray_map.weight",
-          "masked_img_token", "mask_token",
-          "downstream_head.dpt_cross.head.0.weight",
-          "downstream_head.dpt_self.scratch.refinenet4.resConfUnit1.conv1."
-          "weight")
+# upstream-only keys, one per skipped prefix family: the JAX converter's
+# training-only skips and the never-run first residual unit of every DPT's
+# refinenet4
+_EXTRA = ("mask_token", "mask_generator.weight", "enc_pos_embed",
+          "dec_pos_embed") + tuple(
+    f"downstream_head.{h}.scratch.refinenet4.resConfUnit1.conv1.weight"
+    for h in ("dpt_self", "dpt_cross", "dpt_rgb"))
 
 
 @pytest.fixture(scope="module")
@@ -95,21 +95,34 @@ def _ckpt(model, path, drop_state=False, extra=_EXTRA, alias=True):
     for k in extra:
         sd[f"module.{k}"] = torch.ones(4, 4, 1, 1)
     if alias:   # the upstream DPT's ModuleList alias of layer{1..4}_rn
-        for i in range(4):
-            k = f"downstream_head.dpt_self.scratch.layer{i + 1}_rn.weight"
-            sd[f"module.downstream_head.dpt_self.scratch.layer_rn.{i}."
-               "weight"] = model.state_dict()[k].clone()
+        for h in ("dpt_self", "dpt_cross", "dpt_rgb"):
+            for i in range(4):
+                k = f"downstream_head.{h}.scratch.layer{i + 1}_rn.weight"
+                sd[f"module.downstream_head.{h}.scratch.layer_rn.{i}."
+                   "weight"] = model.state_dict()[k].clone()
     torch.save({"model": sd, "epoch": 7}, path)
     return path
 
 
 def test_checkpoint_round_trip(model, tmp_path):
+    """A checkpoint with every upstream key (the ray-map encoder, the
+    masked tokens, the cross / rgb heads and their final_transform blocks
+    included) loads strictly; only the skipped families are dropped."""
     sd = load_cut3r_checkpoint(_ckpt(model, str(tmp_path / "c.pth")))
+    assert set(sd) == set(model.state_dict())
+    for prefix in ("patch_embed_ray_map.", "enc_blocks_ray_map.",
+                   "enc_norm_ray_map.", "masked_img_token",
+                   "masked_ray_map_token", "downstream_head.dpt_cross.",
+                   "downstream_head.dpt_rgb.",
+                   "downstream_head.final_transform."):
+        assert any(k.startswith(prefix) for k in sd), prefix
     other = CUT3R(CUT3RConfig.tiny(), device="cpu")
     other.load_state_dict(sd)   # strict
     for k, v in model.state_dict().items():
         assert torch.equal(other.state_dict()[k], v), k
     assert all(any(k.startswith(p) for p in CKPT_SKIP) for k in _EXTRA)
+    assert not any(any(k.startswith(p) for p in CKPT_SKIP)
+                   for k in model.state_dict())
 
 
 def test_checkpoint_matches_jax_converter(model, tmp_path):
