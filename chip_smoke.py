@@ -82,6 +82,24 @@ Phases (any failure exits nonzero, and no result line is printed):
    (``init_train_state`` / ``init_trainable``: ``init_random`` with the
    pointmap heads' last convolution scaled by 0.05). Every loss
    must be finite, and K1 and K2 must not launch;
+10. the offline evaluation chain: (a) ``integrate_points`` at 2^17
+   Gaussians and 65,536 query points, 384x512, max_per_tile 512, card
+   against CPU (visibility equal, every output within 1e-4); (b)
+   ``python -m cut3r_slam_tpu_torch.tsdf_integrate`` over phase 8's
+   ``renders_kf/`` on the card and on the CPU (the same blocks, SDF and
+   weight within 1e-5, the same triangle count); (c) ``demo_gba`` resumed
+   from phase 8's ``gaussians.npz`` for 200 global-BA iterations (its
+   files written, keyframe PSNR after no more than 0.02 dB below before,
+   K1 and K2 launched); (d) ``demo_test`` on a 24-frame ``synth_replica``
+   sequence at the native 680x1200, mapped at 512 wide (``result.json``
+   with an ATE against the ground truth below half that of the perturbed
+   poses it starts from, a finite PSNR, K1 and K2 launched); (e)
+   ``run_eval --dataset replica`` over 12 frames of that sequence with the
+   full-width CUT3R (phase 6's plausible random weights saved as a
+   checkpoint and passed as ``--ckpt``, in the driver's own processes) at
+   phase 6's mapping cuts: trajectory,
+   ``result.json``, the keyframe eval, ``summary.json`` with a finite ATE
+   and a ``mesh.ply`` must be written;
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -385,16 +403,18 @@ SLICE_MAPPING_CUTS = {
     "window_opt_iters": 10, "new_view_opt_iters": 10, "gba_per_view": 2}
 
 
-def plausible_random_cut3r(seed):
-    """Full-width CUT3R with random weights from a seeded generator. The
-    self-pointmap head's last conv is scaled down and biased to (0, 0, 1)
-    and the pose head to the identity quaternion, so the random model
-    predicts a textured plane in front of a near-static camera (positive
-    depths the mapping stage can fit) instead of noise around zero."""
+def plausible_random_cut3r(seed, config=None, device="cuda"):
+    """CUT3R (full width unless ``config`` says otherwise) with random
+    weights from a seeded generator. The self-pointmap head's last conv is
+    scaled down and biased to (0, 0, 1) and the pose head to the identity
+    quaternion, so the random model predicts a textured plane in front of a
+    near-static camera (positive depths the mapping stage can fit) instead
+    of noise around zero. tests/test_torch_run_eval.py saves the tiny one
+    as the demo's checkpoint."""
     import torch
     from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
-    model = CUT3R(CUT3RConfig(), device="cuda")
-    model.init_random(torch.Generator(device="cuda").manual_seed(seed))
+    model = CUT3R(config or CUT3RConfig(), device=device)
+    model.init_random(torch.Generator(device=device).manual_seed(seed))
     with torch.no_grad():
         last = model.downstream_head.dpt_self.head[4]
         last.weight.mul_(0.05)
@@ -861,7 +881,7 @@ PRODUCTION_SCHEDULE = {"parallel_kf_refine": True, "gba_views_per_iter": 4,
 
 def demo_phase(model, frames, K4, G, card):
     """Phase 8 (see the module docstring). Returns (launches of the run,
-    largest frame seconds)."""
+    largest frame seconds, the run's output directory)."""
     import cv2
     import torch
     import yaml
@@ -1026,7 +1046,7 @@ def demo_phase(model, frames, K4, G, card):
     log(f"[demo] launches: {launches}; inside the batched refines "
         f"{rec['refine']}; inside the batched global-BA segments "
         f"{[r for r in rec['gba']]}")
-    return launches, max(ft)
+    return launches, max(ft), out
 
 
 # ---------------------------------------------------------------------------
@@ -1303,6 +1323,242 @@ def training_phase(G, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the offline evaluation chain
+# ---------------------------------------------------------------------------
+
+OFFLINE_HW = (384, 512)
+OFFLINE_POINTS = 65536
+OFFLINE_FRAMES = 24
+GBA_SLACK_DB = 0.02
+
+
+def synced_s(fn):
+    """(result, seconds) of fn() ended by a device synchronization."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def integrate_points_card_vs_cpu(card):
+    """(a): integrate_points at 2^17 Gaussians and 65,536 query points,
+    384x512, max_per_tile 512, card against CPU."""
+    import torch
+    from cut3r_slam_tpu_torch.ops.gs_integrate import integrate_points
+    from cut3r_slam_tpu_torch.ops.gs_raster import RasterizeConfig
+    H, W = OFFLINE_HW
+    f = 400.0
+    cfg = RasterizeConfig(height=H, width=W, max_per_tile=512)
+    means, quats, s, o, c = frustum_scene(2 ** 17, H, W, f, 1, 10)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    z = torch.rand(OFFLINE_POINTS, generator=g, device="cuda") * 3.5 + 1.0
+    xy = (torch.rand(OFFLINE_POINTS, 2, generator=g, device="cuda") - 0.5) \
+        * torch.tensor([W / f, H / f], device="cuda") * z[:, None] * 1.05
+    pts = torch.cat([xy, z[:, None]], 1)
+    K4 = torch.tensor([f, f, W / 2, H / 2], device="cuda")
+    args = (pts, means[0], quats[0], s, o, c, K4)
+    out, t_card = synced_s(lambda: integrate_points(*args, cfg))
+    t0 = time.perf_counter()
+    ref = integrate_points(*(a.cpu() for a in args), cfg)
+    t_cpu = time.perf_counter() - t0
+    if not torch.equal(out["visible"].cpu(), ref["visible"]):
+        fail("phase 10: integrate_points visibility differs card vs CPU")
+    err = max(float((out[k].cpu() - ref[k]).abs().max())
+              for k in ("alpha_integrated", "color_integrated",
+                        "point_coordinate", "point_sdf"))
+    hit = int((ref["alpha_integrated"] > 0.1).sum())
+    if not err <= 1e-4 or hit < OFFLINE_POINTS // 100:
+        fail(f"phase 10: integrate_points card vs CPU max |err| {err:.3e} "
+             f"(bound 1e-4), {hit} points with alpha > 0.1")
+    log(f"[offline] integrate_points 2^17 Gaussians x {OFFLINE_POINTS} "
+        f"points, {H}x{W}, max_per_tile 512: card vs CPU max |err| "
+        f"{err:.3e}, {hit} points with alpha > 0.1; {t_card * 1e3:.1f} ms on"
+        f" the card, {t_cpu * 1e3:.1f} ms on the CPU | {card}")
+    return err
+
+
+def tsdf_card_vs_cpu(rundir, card):
+    """(b): ``python -m cut3r_slam_tpu_torch.tsdf_integrate`` over phase
+    8's renders_kf on the card, then the same fusion and meshing on the
+    card and on the CPU, timed apart: the same blocks, SDF and weight, the
+    same triangle count."""
+    from cut3r_slam_tpu_torch import tsdf_integrate
+    from cut3r_slam_tpu_torch.utils.tsdf import TSDFVolume
+    _, t_main = synced_s(lambda: tsdf_integrate.main(["--rundir", rundir]))
+    frames, K4 = tsdf_integrate.run_frames(rundir)
+    n = len(frames)
+    vols, t_fuse, t_mesh, tris = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        vol = TSDFVolume(voxel_size=0.02, trunc=0.08, device=dev)
+
+        def fuse():
+            for depth, color, c2w in frames:
+                vol.integrate(depth, color, K4, c2w)
+        _, t_fuse[dev] = synced_s(fuse)
+        (_, faces, _), t_mesh[dev] = synced_s(vol.extract_mesh)
+        vols[dev], tris[dev] = vol, len(faces) if faces is not None else 0
+    a, b = vols["cuda"].block_arrays(), vols["cpu"].block_arrays()
+    if set(a) != set(b) or not a:
+        fail(f"phase 10: TSDF block sets differ card vs CPU ({len(a)} / "
+             f"{len(b)} blocks)")
+    e_sdf = max(float(np.abs(a[k][0] - b[k][0]).max()) for k in a)
+    e_w = max(float(np.abs(a[k][1] - b[k][1]).max()) for k in a)
+    if not (e_sdf <= 1e-5 and e_w <= 1e-5) or tris["cuda"] != tris["cpu"] \
+            or tris["cuda"] == 0 \
+            or not os.path.getsize(os.path.join(rundir, "mesh.ply")) > 1000:
+        fail(f"phase 10: TSDF card vs CPU: SDF {e_sdf:.3e}, weight "
+             f"{e_w:.3e} (bound 1e-5), triangles {tris}")
+    log(f"[offline] TSDF of {n} rendered keyframes ({len(a)} blocks, voxel "
+        f"0.02): card vs CPU SDF max |err| {e_sdf:.3e}, weight {e_w:.3e}, "
+        f"{tris['cuda']} triangles on both; fusion "
+        f"{t_fuse['cuda'] / n * 1e3:.2f} ms a frame on the card, {t_fuse['cpu'] / n * 1e3:.2f} on the CPU; "
+        f"meshing {t_mesh['cuda'] * 1e3:.1f} / {t_mesh['cpu'] * 1e3:.1f} ms; "
+        f"the driver (read, fuse, mesh, ply) {t_main:.2f} s | {card}")
+    return e_sdf, e_w
+
+
+def perturbed_keyframe_ate(seq, kf_every=5):
+    """The ATE of the keyframe positions that demo_test starts from: its
+    ground-truth poses perturbed by the same ``default_rng(0)`` draws."""
+    import torch
+    from cut3r_slam_tpu_torch.datasets.rgbd import get_dataset
+    from cut3r_slam_tpu_torch.demo_test import perturb_pose
+    from cut3r_slam_tpu_torch.geometry.pointmap import pose_vec_to_matrix
+    from cut3r_slam_tpu_torch.utils.eval import ate_rmse
+    ds = get_dataset("replica", seq)
+    rng = np.random.default_rng(0)
+    est, gt = [], []
+    for n in range(min(len(ds), OFFLINE_FRAMES)):
+        c2w = pose_vec_to_matrix(torch.as_tensor(ds[n]["pose"])).numpy()
+        start = c2w if n == 0 else perturb_pose(rng, c2w)
+        if n % kf_every == 0:
+            est.append(start[:3, 3])
+            gt.append(c2w[:3, 3])
+    return ate_rmse(np.stack(est), np.stack(gt))
+
+
+def offline_phase(rundir, G, card):
+    """Phase 10 (see the module docstring). Returns the K1 / K2 launches of
+    the phase and of its two mapping drivers."""
+    import torch
+    from cut3r_slam_tpu_torch import demo_gba, demo_test, run_eval
+    from cut3r_slam_tpu_torch.datasets.synth_replica import \
+        write_replica_sequence
+    from cut3r_slam_tpu_torch import full_f32
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_offline_",
+                            dir=os.path.join(ROOT, "build"))
+    for k in G.LAUNCHES:
+        G.LAUNCHES[k] = 0
+    with full_f32():
+        integrate_points_card_vs_cpu(card)
+    tsdf_card_vs_cpu(rundir, card)
+
+    # (c) offline global-BA resume from phase 8's checkpoint
+    ckpt = os.path.join(rundir, "gaussians.npz")
+    m0 = demo_gba.load_mapper(ckpt, "cuda")
+    valid = m0.cams.valid.cpu().numpy()
+    before = float(np.mean([m0.eval_view(i) for i in range(len(valid))
+                            if valid[i]]))
+    del m0
+    l0 = dict(G.LAUNCHES)
+    (_, res), t_gba = synced_s(lambda: demo_gba.main([
+        "--ckpt", ckpt, "--iters", "200", "--out",
+        os.path.join(root, "gba")]))
+    gba_launches = {k: G.LAUNCHES[k] - l0[k] for k in l0}
+    for f in ("gaussians_gba.npz", "3dgs_final.ply", "gba_result.json"):
+        if not os.path.exists(os.path.join(root, "gba", f)):
+            fail(f"phase 10: demo_gba did not write {f}")
+    # the resume may not make the map worse (the JSON rounds to 0.01 dB)
+    if not (np.isfinite(before) and res["psnr_kf"] >= before - GBA_SLACK_DB) \
+            or min(gba_launches.values()) <= 0:
+        fail(f"phase 10: demo_gba PSNR {before} -> {res['psnr_kf']} (may "
+             f"fall by {GBA_SLACK_DB} dB at most), launches {gba_launches}")
+    log(f"[offline] demo_gba from phase 8's gaussians.npz, 200 iterations: "
+        f"keyframe PSNR {before:.3f} -> {res['psnr_kf']:.3f} dB, "
+        f"{res['gaussians']} Gaussians, {t_gba:.1f} s, launches "
+        f"{gba_launches} | {card}")
+
+    # (d) ground-truth injection on a synthetic Replica sequence
+    data = os.path.join(root, "replica")
+    t0 = time.perf_counter()
+    seq = write_replica_sequence(data, seq="synth0",
+                                 n_frames=OFFLINE_FRAMES, seed=0)
+    t_write = time.perf_counter() - t0
+    ate_in = perturbed_keyframe_ate(seq)
+    l0 = dict(G.LAUNCHES)
+    (_, res), t_dt = synced_s(lambda: demo_test.main([
+        "--dataset", "replica", "--folder", seq, "--output",
+        os.path.join(root, "demo_test"), "--length", str(OFFLINE_FRAMES),
+        "--target_width", "512", "--arena_capacity", str(2 ** 17)]))
+    dt_launches = {k: G.LAUNCHES[k] - l0[k] for k in l0}
+    # mapping must remove at least half of the injected pose error
+    if not os.path.exists(os.path.join(root, "demo_test", "result.json")) \
+            or not (res["ate_rmse_m"] < 0.5 * ate_in
+                    and np.isfinite(res["psnr_kf"])) \
+            or min(dt_launches.values()) <= 0:
+        fail(f"phase 10: demo_test {res} (ATE bound {0.5 * ate_in:.4f} m), "
+             f"launches {dt_launches}")
+    log(f"[offline] demo_test on {OFFLINE_FRAMES} synth_replica frames "
+        f"(680x1200 written in {t_write:.1f} s, mapped at 512 wide): ATE "
+        f"{res['ate_rmse_m']} m against GT (the perturbed keyframe poses "
+        f"{ate_in:.4f} m), psnr_kf {res['psnr_kf']} dB, "
+        f"{res['keyframes']} keyframes, {t_dt:.1f} s, launches {dt_launches}"
+        f" | {card}")
+    launches = dict(G.LAUNCHES)
+
+    # (e) the eval driver over 12 frames, full-width random CUT3R (phase
+    # 6's plausible weights, loaded from a checkpoint), in its own
+    # processes (their launches are not counted here)
+    weights = os.path.join(root, "cut3r_plausible.pth")
+    model = plausible_random_cut3r(seed=0)
+    torch.save({"model": model.state_dict()}, weights)
+    del model
+    cut = os.path.join(root, "cut.yaml")
+    with open(cut, "w") as f:
+        json.dump({"inherit_from": os.path.join(ROOT, "config",
+                                                "replica_config.yaml"),
+                   "Mapping": {k: v for k, v in SLICE_MAPPING_CUTS.items()
+                               if k != "arena_capacity"}}, f)
+    torch.cuda.empty_cache()
+    outdir = os.path.join(root, "eval")
+    t0 = time.perf_counter()
+    summary = run_eval.main([
+        "--dataset", "replica", "--datadir", data, "--output", outdir,
+        "--sequences", "synth0", "--ckpt", weights, "--extra",
+        f"--length 12 --target_width 512 --kf_every 1 "
+        f"--buffer 64 --arena_capacity {2 ** 17} --finalize_iters 50 "
+        f"--config {cut}"])
+    t_eval = time.perf_counter() - t0
+    seq_out = os.path.join(outdir, "synth0")
+    traj = np.loadtxt(os.path.join(seq_out, "traj_kf.txt"), ndmin=2)
+    with open(os.path.join(seq_out, "psnr", "final",
+                           "final_result_kf.json")) as f:
+        kf_res = json.load(f)
+    res = summary["synth0"]
+    mesh = os.path.join(seq_out, "mesh.ply")
+    ok = (traj.shape[1] == 8 and len(traj) >= 5 and np.isfinite(traj).all()
+          and res["keyframes"] >= 5 and np.isfinite(res["psnr_kf"])
+          and kf_res["n_views"] >= 5 and np.isfinite(kf_res["mean_psnr"])
+          and np.isfinite(res.get("ate_rmse_m", np.nan))
+          and res.get("mesh_ply") == mesh and os.path.getsize(mesh) > 1000)
+    if not ok:
+        fail(f"phase 10: run_eval artifacts incomplete: {res}")
+    log(f"[offline] run_eval --dataset replica, 12 frames, full-width "
+        f"random CUT3R: traj_kf.txt {traj.shape}, result.json, "
+        f"final_result_kf.json ({kf_res['n_views']} views), summary.json, "
+        f"mesh.ply {os.path.getsize(mesh)} bytes: all written; ATE "
+        f"{res['ate_rmse_m']:.5f} m, psnr_kf {res['psnr_kf']:.3f} dB, "
+        f"{t_eval:.1f} s | {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[offline] phase 10 in {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {launches}")
+    return launches, gba_launches, dt_launches
+
+
 def kernel_phases(G, card):
     """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
     scene, the staging-edge scene and at the mapping shape (V = 1 and 10,
@@ -1500,7 +1756,8 @@ def main():
     lc_launches = loop_closure_phase(model, G, card)
 
     # 8. the demo driver at the production mapping schedule ------------------
-    demo_launches, demo_max = demo_phase(model, frames, K4, G, card)
+    demo_launches, demo_max, demo_out = demo_phase(model, frames, K4, G,
+                                                   card)
     log(f"[demo] largest frame: {max(frame_s):.2f} s drained (phase 6) vs "
         f"{demo_max:.2f} s interleaved, production schedule (phase 8); not "
         f"a paired comparison | {card}")
@@ -1510,6 +1767,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = training_phase(G, card)
+
+    # 10. the offline evaluation chain ----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    offline_launches, _, _ = offline_phase(demo_out, G, card)
 
     kernels = []
     for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
@@ -1524,7 +1786,8 @@ def main():
                                  "loop_closure": lc_launches[name],
                                  "demo_production_schedule":
                                      demo_launches[name],
-                                 "training": train_launches[name]},
+                                 "training": train_launches[name],
+                                 "offline_eval": offline_launches[name]},
             "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})

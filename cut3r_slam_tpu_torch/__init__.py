@@ -39,16 +39,22 @@ def resolve_device(device="cuda") -> torch.device:
 
 @contextlib.contextmanager
 def full_f32():
-    """Float32 matrix products and convolutions without TF32 inside the
-    block (or the decorated function), the caller's settings restored
-    after. The mapping path and the kernel parity checks run under it: the
-    TPU kernels run their contractions at Precision.HIGHEST."""
+    """Float32 matrix products and convolutions at float32 accuracy inside
+    the block (or the decorated function), the caller's settings restored
+    after: no TF32, and torch's own convolutions in place of cuDNN, whose
+    float32 backward algorithms left the card's training gradients far
+    from a float64 oracle (scripts/f64_oracle_card.py). The mapping path,
+    the kernel parity checks and the card-vs-CPU training checks run under
+    it: the TPU kernels run their contractions at Precision.HIGHEST."""
     mm = torch.backends.cuda.matmul.allow_tf32
     cd = torch.backends.cudnn.allow_tf32
+    on = torch.backends.cudnn.enabled
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.enabled = False
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = cd
+        torch.backends.cudnn.enabled = on

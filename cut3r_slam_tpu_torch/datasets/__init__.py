@@ -3,3 +3,6 @@ from .loaders import (SceneLayout, SceneFolderSource, Co3dSource,  # noqa: F401
 from .multiview import (MultiViewDataset, CatDataset, MulDataset,  # noqa: F401
                         sample_view_offsets, make_batch_iter)
 from .synthscene import generate_multiview_scenes  # noqa: F401
+from .rgbd import (get_dataset, ReplicaDataset, ScanNetDataset,  # noqa: F401
+                   TUMDataset)
+from .synth_replica import write_replica_sequence  # noqa: F401

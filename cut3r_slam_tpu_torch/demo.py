@@ -8,9 +8,11 @@ eval artifacts into ``--output``.
         --calib calib/replica.txt --config config/replica.yaml \
         --output outputs/room0
 
-Runs on the GPU; ``--cpu`` runs the plain PyTorch path on the CPU. Without
-the checkpoint (or with ``--tiny-model``) the model takes random weights
-from seed 0. ``--gui`` is not ported.
+Runs on the GPU; ``--cpu`` runs the plain PyTorch path on the CPU. The
+model loads ``--ckpt``; without that file it takes random weights from
+seed 0. ``--tiny-model`` builds the tiny configuration, which loads a
+tiny checkpoint when ``--ckpt`` names one (the JAX driver's tiny model is
+always random). ``--gui`` is not ported.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ def parse_args(argv=None):
     p.add_argument("--no-mapping", action="store_true")
     p.add_argument("--no-loop", action="store_true")
     p.add_argument("--tiny-model", action="store_true",
-                   help="random tiny model instead of the checkpoint")
+                   help="the tiny configuration (random unless --ckpt "
+                        "names a tiny checkpoint)")
     p.add_argument("--target_width", type=int, default=512,
                    help="tracking width (512 = reference resolution)")
     p.add_argument("--arena_capacity", type=int, default=2 ** 18)
@@ -52,14 +55,14 @@ def parse_args(argv=None):
 
 
 def build_model(args, device):
-    """CUT3R from ``--ckpt``, or with random weights from seed 0 when the
-    file is absent or ``--tiny-model`` is asked for."""
+    """CUT3R (tiny with ``--tiny-model``) from ``--ckpt``, or with random
+    weights from seed 0 when the file is absent."""
     import torch
     from .models import CUT3R, CUT3RConfig
     from .models.convert import load_cut3r_checkpoint
     mcfg = CUT3RConfig.tiny() if args.tiny_model else CUT3RConfig()
     model = CUT3R(mcfg, device=device)
-    if args.tiny_model or not os.path.exists(args.ckpt):
+    if not os.path.exists(args.ckpt):
         print(f"[demo] checkpoint {args.ckpt} unavailable -> random init")
         gen = torch.Generator(device=model.device).manual_seed(0)
         model.init_random(gen)

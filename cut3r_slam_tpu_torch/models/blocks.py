@@ -8,9 +8,13 @@ follow the upstream torch state_dict (``attn.qkv``, ``cross_attn.projq``,
 Numerics follow the JAX model's flax dtypes: weights are stored f32 and
 each Linear casts its input and weights to ``dtype`` (bf16 on the card at
 inference, f32 in the CPU parity tests); LayerNorm computes and returns
-f32; RoPE runs in f32. Attention is ``F.scaled_dot_product_attention``
-(the JAX package uses ``jax.nn.dot_product_attention``, not a Pallas
-kernel).
+f32; RoPE runs in f32. A model with f64 weights computes in f64 throughout
+(``rope.promoted_dtype`` / ``at_least_f32``: the float64 oracle of
+tests/test_torch_f64_oracle.py). Attention is
+``F.scaled_dot_product_attention`` at inference and the explicit softmax
+where a backward runs or a read has one query, on both devices
+(``_sdpa``; the JAX package uses ``jax.nn.dot_product_attention``, not a
+Pallas kernel).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .rope import apply_rope2d
+from .rope import apply_rope2d, at_least_f32, promoted_dtype
 
 __all__ = ["Linear", "LayerNorm", "Mlp", "Attention", "CrossAttention",
            "Block", "DecoderBlock", "ModLN", "ConditionModulationBlock"]
@@ -35,20 +39,21 @@ class Linear(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        dt = self.compute_dtype
+        dt = promoted_dtype(self.compute_dtype, self.weight)
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm(eps=1e-6) computed and returned in f32."""
+    """LayerNorm(eps=1e-6) computed and returned in f32 (f64 for f64
+    inputs)."""
 
     def __init__(self, dim):
         super().__init__(dim, eps=1e-6)
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps)
+        return F.layer_norm(at_least_f32(x), self.normalized_shape,
+                            self.weight, self.bias, self.eps)
 
 
 class Mlp(nn.Module):
@@ -62,7 +67,21 @@ class Mlp(nn.Module):
 
 
 def _sdpa(q, k, v, scale):
-    return F.scaled_dot_product_attention(q, k, v, scale=scale)
+    """Softmax attention, keyed to the read, the same on both devices. A
+    read that a backward will run through, or a read with one query (the
+    pose retriever's; it costs next to nothing), computes the explicit
+    softmax(q k^T scale) v of the JAX model; any other read (inference)
+    takes the fused kernel. Against a float64 oracle
+    (tests/test_torch_f64_oracle.py, scripts/f64_oracle_card.py): on the
+    card the fused backward left the pose retriever's one-query q / k
+    weight gradients up to 8.35x further off than the JAX package's; on
+    the CPU a training step that mixed the two paths moved 285 of 532
+    tensors beyond 3x, where either path alone stayed within."""
+    if q.shape[-2] != 1 and not (q.requires_grad or k.requires_grad
+                                 or v.requires_grad):
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+    s = (q @ k.transpose(-2, -1)) * scale
+    return torch.softmax(s, -1, dtype=at_least_f32(s).dtype).to(v.dtype) @ v
 
 
 class Attention(nn.Module):

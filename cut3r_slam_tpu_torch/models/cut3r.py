@@ -27,6 +27,7 @@ from .. import resolve_device
 from .blocks import Block, DecoderBlock, LayerNorm, Linear
 from .heads import DPTPts3dPose
 from .patch_embed import PatchEmbed
+from .rope import at_least_f32
 
 __all__ = ["CUT3RConfig", "CUT3R", "LocalMemory", "normalize_images",
            "HEAD_OUTPUTS"]
@@ -237,9 +238,9 @@ class CUT3R(nn.Module):
         reg = self.register_tokens.weight
         state_feat = self.decoder_embed_state(
             reg[None].expand(batch, c.state_size, c.enc_embed_dim))
-        return (state_feat.float(),
+        return (at_least_f32(state_feat),
                 _state_positions(c.state_size, batch, self.device),
-                self.pose_retriever.initial_mem(batch).float())
+                at_least_f32(self.pose_retriever.initial_mem(batch)))
 
     def decode_step(self, state_feat, state_pos, mem, feat_i, pos_i,
                     is_first: bool, init_state_feat=None, init_mem=None,
@@ -262,7 +263,7 @@ class CUT3R(nn.Module):
         f_img = torch.cat([pose_feat.to(f_img.dtype), f_img], 1)
         pos_img = torch.cat([pose_pos, pos_i], 1)
 
-        hooks = {0: feat_i.float()}
+        hooks = {0: at_least_f32(feat_i)}
         f_state = state_feat
         for layer, (blk_state, blk_img) in enumerate(
                 zip(self.dec_blocks_state, self.dec_blocks), start=1):
@@ -270,14 +271,14 @@ class CUT3R(nn.Module):
             f_img_new, _ = blk_img(f_img, f_state, pos_img, state_pos)
             f_state, f_img = f_state_new, f_img_new
             if layer in (c.dec_depth * 2 // 4, c.dec_depth * 3 // 4):
-                hooks[layer] = f_img[:, 1:].float()
+                hooks[layer] = at_least_f32(f_img[:, 1:])
         f_state = self.dec_norm_state(f_state)
         f_img = self.dec_norm(f_img)
         hooks[c.dec_depth] = f_img
         new_mem = self.pose_retriever.update_mem(mem.to(global_feat.dtype),
                                                  global_feat, f_img[:, 0:1])
-        state_feat = _gate(update, f_state.float(), state_feat)
-        mem = _gate(update, new_mem.float(), mem)
+        state_feat = _gate(update, at_least_f32(f_state), state_feat)
+        mem = _gate(update, at_least_f32(new_mem), mem)
         if reset is not None:
             state_feat = _gate(reset, init_state_feat, state_feat)
             mem = _gate(reset, init_mem, mem)

@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .blocks import ConditionModulationBlock, Mlp
+from .rope import at_least_f32
 
 __all__ = ["DPTAdapter", "PoseDecoder", "DPTPts3dPose", "reg_dense_depth",
            "reg_dense_conf", "postprocess_pose"]
@@ -101,8 +102,8 @@ class DPTAdapter(nn.Module):
     def forward(self, tokens, img_h: int, img_w: int):
         """tokens: 4 tensors (B, N, C_i) -> (B, H, W, num_channels)."""
         nh, nw = img_h // self.patch_size, img_w // self.patch_size
-        feats = [t.float().transpose(1, 2).reshape(t.shape[0], -1, nh, nw)
-                 for t in tokens]
+        feats = [at_least_f32(t).transpose(1, 2)
+                 .reshape(t.shape[0], -1, nh, nw) for t in tokens]
         layers = [act(f) for act, f in zip(self.act_postprocess, feats)]
         s = self.scratch
         rn = [getattr(s, f"layer{k + 1}_rn")(l) for k, l in enumerate(layers)]
@@ -177,9 +178,9 @@ class DPTPts3dPose(nn.Module):
 
     def forward(self, hook_tokens, img_h: int, img_w: int, pos,
                 outputs=("self", "cross", "rgb", "pose")):
-        pose_token = hook_tokens[-1][:, 0].float()
-        token = hook_tokens[-1][:, 1:].float()
-        x_self = [t.float() for t in hook_tokens[:-1]] + [token]
+        pose_token = at_least_f32(hook_tokens[-1][:, 0])
+        token = at_least_f32(hook_tokens[-1][:, 1:])
+        x_self = [at_least_f32(t) for t in hook_tokens[:-1]] + [token]
         out = {}
         if "pose" in outputs:
             out["camera_pose"] = postprocess_pose(self.pose_head(pose_token))
@@ -191,7 +192,7 @@ class DPTPts3dPose(nn.Module):
             tc = token
             for blk in self.final_transform:
                 tc = blk(tc, pose_token, pos)
-            co = self.dpt_cross(x_self[:-1] + [tc.float()], img_h, img_w)
+            co = self.dpt_cross(x_self[:-1] + [at_least_f32(tc)], img_h, img_w)
             out["pts3d_in_other_view"] = reg_dense_depth(co[..., :3])
             out["conf"] = reg_dense_conf(co[..., 3])
         if self.has_rgb and "rgb" in outputs:

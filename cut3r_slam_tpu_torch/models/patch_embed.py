@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .rope import promoted_dtype
+
 __all__ = ["PatchEmbed", "patch_positions"]
 
 
@@ -39,7 +41,7 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
 
     def _tokens(self, x_nchw: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
+        dt = promoted_dtype(self.dtype, self.proj.weight)
         x = F.conv2d(x_nchw.to(dt), self.proj.weight.to(dt),
                      self.proj.bias.to(dt), stride=self.patch_size)
         return x.flatten(2).transpose(1, 2)

@@ -151,8 +151,9 @@ class Sim3PGO:
             self.add_relative_se3(i, i + 1, rel, weight)
 
     def solve(self, poses_se3: np.ndarray, iters: int = 10, fixed: int = 1,
-              device="cpu") -> np.ndarray:
-        """Refine absolute SE(3) poses (N, 7); returns (N, 8) Sim3."""
+              *, device) -> np.ndarray:
+        """Refine absolute SE(3) poses (N, 7) on ``device``; returns (N, 8)
+        Sim3."""
         n = len(poses_se3)
         g0 = np.concatenate([np.asarray(poses_se3, np.float32),
                              np.ones((n, 1), np.float32)], axis=1)

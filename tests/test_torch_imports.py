@@ -54,3 +54,21 @@ def test_entry_points_refuse_missing_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MappingBackend(MappingConfig(height=16, width=16, capacity=64,
                                      cam_capacity=2), [10, 10, 8, 8])
+    from cut3r_slam_tpu_torch.utils.tsdf import TSDFVolume
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSDFVolume()
+
+
+@pytest.mark.parametrize("caller", [True, False])
+def test_full_f32_turns_cudnn_off_inside_only(caller):
+    """``full_f32`` runs convolutions without cuDNN (its float32 backward
+    algorithms are not float32-accurate) and restores the caller's
+    setting after, whatever it was."""
+    before = torch.backends.cudnn.enabled
+    try:
+        torch.backends.cudnn.enabled = caller
+        with cut3r_slam_tpu_torch.full_f32():
+            assert torch.backends.cudnn.enabled is False
+        assert torch.backends.cudnn.enabled is caller
+    finally:
+        torch.backends.cudnn.enabled = before

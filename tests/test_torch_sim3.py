@@ -234,8 +234,11 @@ def test_sim3pgo_solve_recovers_drift():
         pgo = mod.Sim3PGO()
         pgo.add_sequential_constraints(gt, weight=1.0)
         pgo.add_relative_se3(0, 7, loop, weight=5.0)
-        outs.append(np.asarray(pgo.solve(init, iters=8)))
+        kw = {"device": "cpu"} if mod is TS else {}
+        outs.append(np.asarray(pgo.solve(init, iters=8, **kw)))
     np.testing.assert_allclose(outs[1], outs[0], **TOL)
+    with pytest.raises(TypeError):      # the device is the caller's choice
+        pgo.solve(init, iters=8)
     err = np.abs(TL.se3_log(TL.se3_mul(
         torch.tensor(outs[1][:, :7]), TL.se3_inv(torch.tensor(gt))))).mean()
     err0 = np.abs(drift).mean()
