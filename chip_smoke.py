@@ -65,7 +65,10 @@ Phases (any failure exits nonzero, and no result line is printed):
    ``SceneFolderSource`` -> ``MultiViewDataset`` -> ``make_batch_iter``):
    first the tiny model card vs CPU (f32, no TF32): three
    ``make_train_step`` steps and one truncated-BPTT step from the same
-   weights and batches, losses within 1e-5 relative, the gradient of
+   weights and batches, the card following the CPU run's branch at every
+   head ReLU (``heads.ReluBranches``: a pre-activation within rounding of
+   zero cannot flip one side's gradient path), losses within 1e-5
+   relative, the gradient of
    every parameter tensor (Adam's first moment after each step taken at
    the starting weights) within 1e-4 of its norm plus 1e-6 of the
    largest tensor's, parameters within
@@ -88,7 +91,7 @@ Phases (any failure exits nonzero, and no result line is printed):
    ``python -m cut3r_slam_tpu_torch.tsdf_integrate`` over phase 8's
    ``renders_kf/`` on the card and on the CPU (the same blocks, SDF and
    weight within 1e-5, the same triangle count); (c) ``demo_gba`` resumed
-   from phase 8's ``gaussians.npz`` for 200 global-BA iterations (its
+   from phase 8's ``gaussians.npz`` for 100 global-BA iterations (its
    files written, keyframe PSNR after no more than 0.02 dB below before,
    K1 and K2 launched); (d) ``demo_test`` on a 24-frame ``synth_replica``
    sequence at the native 680x1200, mapped at 512 wide (``result.json``
@@ -100,6 +103,29 @@ Phases (any failure exits nonzero, and no result line is printed):
    phase 6's mapping cuts: trajectory,
    ``result.json``, the keyframe eval, ``summary.json`` with a finite ATE
    and a ``mesh.ply`` must be written;
+11. the mono prior and the other model families, at their published
+   widths with random weights from seeds: (a) ``SLAMSystem.run`` then
+   ``terminate`` over phase 6's first 14 frames with full-width CUT3R and
+   ``motion_filter.use_prior`` (the default ``PriorNet``: 384 wide, 12
+   blocks, 6 heads, depth and normal); a mapping event must run, K1 and
+   K2 must launch inside ``run`` (``launches_by_path["mono_prior"]``),
+   every keyframe's prior depth must be finite and > 0 and every normal a
+   unit vector to 1e-4, and one ``PriorNet`` call must agree card vs CPU
+   in f32 within 1e-4 of the map's max; (b) Omnidata DPT-hybrid
+   checkpoints written in the public ``omnidata_dpt_{depth,normal}_v2``
+   layout, loaded strictly through the system's ``omnidata_ckpt_*`` branch
+   and run at 384x512, card vs CPU in f32 within 5e-4 of the map's max;
+   (c) CUT3R with the linear head: the tiny model card vs CPU (f32, every
+   head, within 1e-4 of each output's max), one full-width forward at
+   224x224; (d) full ``CroCoConfig()`` (ViT-B/16 encoder, 512 x 8 decoder,
+   224x224, mask 0.9): 6 pretraining steps on ``make_pair_iter`` pairs, 6
+   ``train_stereoflow`` steps, ``tiled_predict`` over 352x480 and
+   ``evaluate_stereoflow``, every loss finite; (e)
+   ``AsymmetricCroCo3DStereo`` at the DUSt3R_ViTLarge_BaseDecoder_512
+   widths on one 512x384 pair with either head, full ``Spann3RConfig()``
+   over 28 frames at 224x224 (the 5-frame ring and the 4000-token arena
+   both evict), and an upstream-layout Spann3R checkpoint loaded
+   strictly;
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -398,6 +424,7 @@ def bound_ms(name, A, ext, tchk, pairs):
 
 # iteration counts of the slice runs (phases 6 and 7), cut to fit the time
 # limit; widths are not cut
+SLICE_FRAMES = 16   # phase 6 (cut from 24): 9 keyframes, 2 mapping events
 SLICE_MAPPING_CUTS = {
     "arena_capacity": 2 ** 17, "iterations": 20, "pose_refine_iters": 10,
     "window_opt_iters": 10, "new_view_opt_iters": 10, "gba_per_view": 2}
@@ -1141,6 +1168,7 @@ def training_card_vs_cpu(root):
     import torch
     from cut3r_slam_tpu_torch import full_f32
     from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
+    from cut3r_slam_tpu_torch.models.heads import ReluBranches
     from cut3r_slam_tpu_torch.train.train_step import (
         lr_at, make_optimizer, make_tbptt_train_step, make_train_step)
     from cut3r_slam_tpu_torch.train.trainer import TrainerConfig, train
@@ -1154,30 +1182,40 @@ def training_card_vs_cpu(root):
     init = {k: v.clone() for k, v in init.state_dict().items()}
     kw = dict(lr=1e-4, weight_decay=0.05, warmup_steps=2, total_steps=10)
     out = {}
+
+    def steps(dev):
+        """Three train steps, then a TBPTT step from the same weights."""
+        m = CUT3R(CUT3RConfig.tiny(), device=dev)
+        m.load_state_dict(init)
+
+        def mu(opt):
+            return {n: opt.state[p]["mu"].cpu().clone()
+                    for n, p in m.named_parameters()}
+
+        opt = make_optimizer(m.parameters(), **kw)
+        step = make_train_step(m, opt)
+        losses, mus = [], []
+        for b in batches:
+            losses.append(float(step(b)["total"]))
+            mus.append(mu(opt))
+        m3 = {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+        m.load_state_dict(init)
+        opt = make_optimizer(m.parameters(), **dict(kw, warmup_steps=0))
+        tb = make_tbptt_train_step(m, opt, chunk=2, grad_chunks=1)
+        return (losses, m3, float(tb(b4)["total"]),
+                {k: v.detach().cpu().clone()
+                 for k, v in m.state_dict().items()},
+                mus[:2] + [mu(opt)])
+
+    # the card follows the CPU run's branch at every head ReLU, so that a
+    # pre-activation within rounding of zero cannot flip one side's
+    # gradient path: the comparison measures rounding only
+    cpu_branches = ReluBranches()
     with full_f32():
-        for dev in ("cpu", "cuda"):
-            m = CUT3R(CUT3RConfig.tiny(), device=dev)
-            m.load_state_dict(init)
-
-            def mu(opt):
-                return {n: opt.state[p]["mu"].cpu().clone()
-                        for n, p in m.named_parameters()}
-
-            opt = make_optimizer(m.parameters(), **kw)
-            step = make_train_step(m, opt)
-            losses, mus = [], []
-            for b in batches:
-                losses.append(float(step(b)["total"]))
-                mus.append(mu(opt))
-            m3 = {k: v.detach().cpu().clone()
-                  for k, v in m.state_dict().items()}
-            m.load_state_dict(init)
-            opt = make_optimizer(m.parameters(), **dict(kw, warmup_steps=0))
-            tb = make_tbptt_train_step(m, opt, chunk=2, grad_chunks=1)
-            out[dev] = (losses, m3, float(tb(b4)["total"]),
-                        {k: v.detach().cpu().clone()
-                         for k, v in m.state_dict().items()},
-                        mus[:2] + [mu(opt)])
+        with cpu_branches:
+            out["cpu"] = steps("cpu")
+        with ReluBranches(cpu_branches.masks) as branches:
+            out["cuda"] = steps("cuda")
         logs = []
         m = CUT3R(CUT3RConfig.tiny(), device="cuda")
         train(m, iter(batches), TrainerConfig(
@@ -1200,7 +1238,10 @@ def training_card_vs_cpu(root):
                                     for a, b in zip(trained, lg)):
         fail(f"phase 9: train() on the card logged {trained}, "
              f"make_train_step {lg}")
-    return {"tiny losses card vs cpu, max rel": rel,
+    return {"head ReLUs replayed on the card from the CPU run, elements "
+            "against their own sign / smallest |x| / max|x|":
+            (branches.flips, cpu_branches.margin),
+            "tiny losses card vs cpu, max rel": rel,
             "tiny gradients (Adam first moments) of steps 1, 2 and TBPTT, "
             "worst tensor's diff / (norm + floor)": grads,
             "tiny params after 3 steps, max abs / beyond 1e-5": worst3,
@@ -1330,6 +1371,7 @@ def training_phase(G, card):
 OFFLINE_HW = (384, 512)
 OFFLINE_POINTS = 65536
 OFFLINE_FRAMES = 24
+GBA_ITERS = 100     # two 50-step global-BA segments (cut from 200)
 GBA_SLACK_DB = 0.02
 
 
@@ -1466,7 +1508,7 @@ def offline_phase(rundir, G, card):
     del m0
     l0 = dict(G.LAUNCHES)
     (_, res), t_gba = synced_s(lambda: demo_gba.main([
-        "--ckpt", ckpt, "--iters", "200", "--out",
+        "--ckpt", ckpt, "--iters", str(GBA_ITERS), "--out",
         os.path.join(root, "gba")]))
     gba_launches = {k: G.LAUNCHES[k] - l0[k] for k in l0}
     for f in ("gaussians_gba.npz", "3dgs_final.ply", "gba_result.json"):
@@ -1477,7 +1519,8 @@ def offline_phase(rundir, G, card):
             or min(gba_launches.values()) <= 0:
         fail(f"phase 10: demo_gba PSNR {before} -> {res['psnr_kf']} (may "
              f"fall by {GBA_SLACK_DB} dB at most), launches {gba_launches}")
-    log(f"[offline] demo_gba from phase 8's gaussians.npz, 200 iterations: "
+    log(f"[offline] demo_gba from phase 8's gaussians.npz, {GBA_ITERS} "
+        f"iterations: "
         f"keyframe PSNR {before:.3f} -> {res['psnr_kf']:.3f} dB, "
         f"{res['gaussians']} Gaussians, {t_gba:.1f} s, launches "
         f"{gba_launches} | {card}")
@@ -1557,6 +1600,405 @@ def offline_phase(rundir, G, card):
     log(f"[offline] phase 10 in {time.perf_counter() - t_phase:.1f} s; "
         f"launches {launches}")
     return launches, gba_launches, dt_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the mono prior on the live loop, Omnidata DPT-hybrid, CUT3R's
+# linear head, CroCo and the stereo / flow harness, DUSt3R-pair, Spann3R
+# ---------------------------------------------------------------------------
+
+PRIOR_FRAMES = 14   # phase 6's first frames: 8 keyframes, a mapping event
+SPANN3R_FRAMES = 28  # 23 displaced frames x 196 tokens overflow 4000 slots
+
+
+def _scratch(prefix):
+    """A fresh directory under the checkout's ``build/``."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=os.path.join(ROOT, "build"))
+
+
+def _close(got, ref, rtol):
+    """max |got - ref| over max |ref| (both moved to the CPU), or fails
+    above ``rtol``."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    err = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-12)
+    return err if err <= rtol else None
+
+
+def prior_live_loop(G, card, frames, K4):
+    """(a) SLAMSystem.run then terminate over phase 6's first frames with
+    full-width CUT3R and the default PriorNet prior (384 wide, 12 blocks,
+    6 heads; depth and normal, random weights). Returns the kernels'
+    launches inside run()."""
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.models.blocks import init_random
+    from cut3r_slam_tpu_torch.models.priors import (PriorNet,
+                                                     normalize_imagenet)
+    from cut3r_slam_tpu_torch.slam.system import SLAMSystem
+    from cut3r_slam_tpu_torch.utils.config import DEFAULT_CONFIG
+    H, W = frames[0].shape[:2]
+    model = plausible_random_cut3r(seed=0)
+    cfg = json.loads(json.dumps(DEFAULT_CONFIG))
+    cfg["Tracking"]["motion_filter"].update(kf_every=2, use_prior=True)
+    cfg["Mapping"].update(SLICE_MAPPING_CUTS)
+    cfg["opt_params"] = {"position_lr_max_steps": 50}
+    out_dir = _scratch("chip_smoke_prior_")
+    slam = SLAMSystem(model, cfg, buffer=64, img_hw=(H, W),
+                      output_dir=out_dir, device="cuda")
+    prior_s = []
+
+    def timed(fn):
+        def run(img):
+            out, s = synced(fn, img)
+            prior_s.append(s)
+            return out
+        return run
+    slam.filter.prior = tuple(timed(fn) for fn in slam.filter.prior)
+    for k in G.LAUNCHES:
+        G.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    events = 0
+    for t, img in enumerate(frames[:PRIOR_FRAMES]):
+        _, viz = slam.run(t, img, K4, img_map=img, K4_map=K4,
+                          last=(t == PRIOR_FRAMES - 1))
+        events += viz is not None
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(G.LAUNCHES)
+    slam.terminate(PRIOR_FRAMES - 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kf = slam.keyframes
+    n = kf.count
+    depth, normal = kf.prior_depth[:n], kf.prior_normal[:n]
+    if events < 1:
+        fail("phase 11: no mapping event ran with the prior on")
+    if min(launches.values()) <= 0:
+        fail(f"phase 11: a kernel did not launch inside run(): {launches}")
+    if not (np.isfinite(depth).all() and (depth > 0).all()):
+        fail("phase 11: a keyframe's prior depth is not finite and > 0")
+    unit = float(np.abs(np.linalg.norm(normal, axis=-1) - 1).max())
+    if not unit <= 1e-4:
+        fail(f"phase 11: prior normals off unit length by {unit:.2e}")
+    if not np.isfinite(kf.pose[:n]).all():
+        fail("phase 11: non-finite keyframe poses")
+    # one PriorNet call card vs CPU, f32 (the system's depth net: seed 0)
+    net = PriorNet(device="cuda")
+    init_random(net, torch.Generator(device="cuda").manual_seed(0))
+    ref = PriorNet(device="cpu")
+    ref.load_state_dict(net.state_dict())
+    x = normalize_imagenet(torch.as_tensor(frames[0]))[None]
+    with torch.no_grad(), full_f32():
+        d_card, d_cpu = net(x.cuda()), ref(x)
+    rel = _close(d_card, d_cpu, 1e-4)
+    if rel is None:
+        fail("phase 11: PriorNet card vs CPU beyond 1e-4 of max |depth|")
+    log(f"[prior] {PRIOR_FRAMES} frames, {n} keyframes, {events} mapping "
+        f"events; {PRIOR_FRAMES / run_s:.3f} frames/s over run() "
+        f"({run_s:.1f} s); prior {1e3 * sum(prior_s) / n:.1f} ms per "
+        f"keyframe (depth + normal PriorNet, 384 x 12 blocks, synchronized); "
+        f"peak {peak:.2f} GiB | {card}")
+    log(f"[prior] launches inside run(): {launches}; prior depth "
+        f"{float(depth.min()):.3f}-{float(depth.max()):.3f}, normals unit to "
+        f"{unit:.1e}; PriorNet card vs CPU (f32) max err / max |depth| "
+        f"{rel:.2e}")
+    del slam, model
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+def omnidata_state_dict(task, seed):
+    """A random Omnidata DPT-hybrid state dict in the public
+    ``omnidata_dpt_{task}_v2`` names and shapes (the model's, drawn by
+    ``init_random`` from ``seed``), with the keys of the public checkpoint
+    that the model does not read."""
+    import torch
+    from cut3r_slam_tpu_torch.models.blocks import init_random
+    from cut3r_slam_tpu_torch.models.omnidata import OmnidataDPT
+    m = init_random(OmnidataDPT(task, device="cpu"),
+                    torch.Generator().manual_seed(seed))
+    sd = dict(m.state_dict())
+    g = torch.Generator().manual_seed(seed + 100)
+    for k, shape in (("pretrained.model.norm.weight", (768,)),
+                     ("pretrained.model.norm.bias", (768,)),
+                     ("pretrained.model.head.weight", (1000, 768)),
+                     ("pretrained.model.head.bias", (1000,))):
+        sd[k] = torch.randn(shape, generator=g)
+    for c in (1, 2):
+        pre = "scratch.refinenet4.resConfUnit1."
+        sd[pre + f"conv{c}.weight"] = torch.randn(256, 256, 3, 3, generator=g)
+        sd[pre + f"conv{c}.bias"] = torch.zeros(256)
+    return sd
+
+
+def omnidata_prior(card, frames):
+    """(b) Omnidata checkpoints in the public layout through the system's
+    ``omnidata_ckpt_*`` branch at 384x512: card vs CPU (f32), ms a call,
+    peak memory."""
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.slam.system import build_prior_fns
+    H, W = frames[0].shape[:2]
+    root = _scratch("chip_smoke_omni_")
+    cfg = {}
+    for seed, task in enumerate(("depth", "normal")):
+        path = os.path.join(root, f"omnidata_dpt_{task}_v2.ckpt")
+        torch.save({"state_dict": {"model." + k: v for k, v in
+                                   omnidata_state_dict(task, seed).items()}},
+                   path)
+        cfg[f"omnidata_ckpt_{task}"] = path
+    card_fns = build_prior_fns(cfg, (H, W), "cuda")
+    cpu_fns = build_prior_fns(cfg, (H, W), "cpu")
+    img = frames[0]
+    errs = []
+    with torch.no_grad():
+        with full_f32():
+            for fc, fp in zip(card_fns, cpu_fns):
+                # f32 through 16 bottlenecks, 12 ViT blocks and the
+                # decoder, summed in other orders on the two devices
+                err = _close(fc(img), fp(img), 5e-4)
+                if err is None:
+                    fail("phase 11: Omnidata prior card vs CPU beyond 5e-4 "
+                         "of the map's max")
+                errs.append(err)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        ms = [cuda_ms(lambda: fn(img), 5) for fn in card_fns]
+        d, nrm = (fn(img) for fn in card_fns)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (torch.isfinite(d).all() and torch.isfinite(nrm).all()) \
+            or d.shape != (H, W) or nrm.shape != (H, W, 3):
+        fail("phase 11: Omnidata priors not finite maps of the image size")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[omnidata] DPT-hybrid (ViT-B/16 + ResNet-50 stem, random weights "
+        f"loaded strictly from the public ckpt layout) at {H}x{W}: depth "
+        f"{ms[0]:.2f} ms, normal {ms[1]:.2f} ms a call (TF32 convolutions "
+        f"through cuDNN, the default); card vs CPU (f32) max err / max "
+        f"{errs[0]:.2e} / {errs[1]:.2e}; peak {peak:.2f} GiB with "
+        f"{base:.2f} GiB of weights held | {card}")
+
+
+def linear_head_check(card):
+    """(c) CUT3R with the linear head: the tiny model card vs CPU (f32,
+    every head), then one full-width inference forward at 224x224."""
+    import dataclasses
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
+    tiny = dataclasses.replace(CUT3RConfig.tiny(), head_type="linear")
+    a = CUT3R(tiny, device="cpu")
+    a.init_random(torch.Generator().manual_seed(3))
+    b = CUT3R(tiny, device="cuda")
+    b.load_state_dict(a.state_dict())
+    x = torch.rand(2, 1, 32, 48, 3, generator=torch.Generator().manual_seed(4)
+                   ) * 2 - 1
+    with torch.no_grad(), full_f32():
+        oa, ob = a(x), b(x.cuda())
+    worst = 0.0
+    for k in oa:
+        err = _close(ob[k], oa[k], 1e-4)
+        if err is None:
+            fail(f"phase 11: linear-head {k} card vs CPU beyond 1e-4")
+        worst = max(worst, err)
+    full = CUT3R(dataclasses.replace(CUT3RConfig(), head_type="linear"),
+                 device="cuda")
+    full.init_random(torch.Generator(device="cuda").manual_seed(0))
+    imgs = torch.rand(2, 1, 224, 224, 3, device="cuda") * 2 - 1
+    with torch.no_grad():
+        out, s = synced(full, imgs)
+        _, s = synced(full, imgs)
+    if not all(torch.isfinite(v).all() for v in out.values()) \
+            or out["pts3d_in_self_view"].shape != (2, 1, 224, 224, 3):
+        fail("phase 11: the full-width linear head gave non-finite outputs")
+    log(f"[linear] CUT3R with LinearPts3dPose: tiny card vs CPU (f32) max "
+        f"err / max {worst:.2e}; full width (bf16), 2 views at 224x224, "
+        f"every head: {1e3 * s:.1f} ms a forward | {card}")
+    del full
+
+
+def _flow_batches(frames, batch, seed, hw=(224, 224), shift=(3, 1)):
+    """{img1, img2, gt} batches: crops of the synthetic frames in [-1, 1]
+    and the same crops moved by ``shift`` (a constant flow)."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    dx, dy = shift
+    while True:
+        i1, i2 = [], []
+        for _ in range(batch):
+            f = frames[rng.integers(len(frames))].astype(np.float32)
+            y = int(rng.integers(0, f.shape[0] - h - dy))
+            x = int(rng.integers(0, f.shape[1] - w - dx))
+            i1.append(f[y + dy:y + dy + h, x + dx:x + dx + w])
+            i2.append(f[y:y + h, x:x + w])
+        norm = lambda a: np.stack(a) / 127.5 - 1.0
+        gt = np.broadcast_to(np.float32([dx, dy]), (batch, h, w, 2))
+        yield {"img1": norm(i1), "img2": norm(i2), "gt": gt.copy()}
+
+
+def croco_phase(card, frames):
+    """(d) full CroCoConfig(): pretraining steps on make_pair_iter pairs,
+    train_stereoflow steps, tiled_predict and evaluate_stereoflow."""
+    import torch
+    from cut3r_slam_tpu_torch.datasets import PairDataset, make_pair_iter
+    from cut3r_slam_tpu_torch.models.blocks import init_random
+    from cut3r_slam_tpu_torch.models.croco_pretrain import (
+        CroCoConfig, CroCoPretrain, croco_pretrain_loss)
+    from cut3r_slam_tpu_torch.train.stereoflow import (
+        StereoFlowConfig, evaluate_stereoflow, tiled_predict,
+        train_stereoflow)
+    from cut3r_slam_tpu_torch.train.train_step import AdamW
+    cfg = CroCoConfig()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_random(CroCoPretrain(cfg, device="cuda"), gen)
+    opt = AdamW(model.parameters(), lr=1.5e-4, weight_decay=0.05,
+                warmup_steps=1, total_steps=6)
+    pairs = make_pair_iter(PairDataset([{"image": f} for f in frames],
+                                       synth=True, seed=0),
+                           batch_size=8, seed=0, resolution=(224, 224))
+    losses, secs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(6):
+        b = next(pairs)
+        t0 = time.perf_counter()
+        pred, mask, target = model(torch.as_tensor(b["img1"], device="cuda"),
+                                   torch.as_tensor(b["img2"], device="cuda"),
+                                   generator=gen)
+        loss = croco_pretrain_loss(pred, mask, target)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        secs.append(time.perf_counter() - t0)
+    peak_p = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_vis = int((~mask).sum(1)[0])
+    if not np.isfinite(losses).all() or n_vis != 20:
+        fail(f"phase 11: CroCo pretraining losses {losses}, {n_vis} visible")
+    del model, opt
+    tcfg = StereoFlowConfig(task="flow", lr=3e-5, total_steps=6,
+                            warmup_steps=1, log_every=1)
+    logs, t0 = [], time.perf_counter()
+    flow, flosses = train_stereoflow(cfg, _flow_batches(frames, 4, 1), tcfg,
+                                     log_fn=logs.append, generator=gen,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    flow_s = (time.perf_counter() - t0) / tcfg.total_steps
+    if not np.isfinite(flosses).all() or len(flosses) != 6:
+        fail(f"phase 11: stereo / flow losses {flosses}")
+    big = next(_flow_batches(frames, 1, 2, hw=(352, 480)))
+    pred = tiled_predict(flow, big["img1"][0], big["img2"][0])
+    evals = evaluate_stereoflow(flow, [{k: v[0] for k, v in next(
+        _flow_batches(frames, 1, 3 + i, hw=(352, 480))).items()}
+        for i in range(2)])
+    if pred.shape != (352, 480, 2) or not np.isfinite(pred).all() \
+            or not np.isfinite(list(evals.values())).all():
+        fail("phase 11: tiled stereo / flow prediction not finite")
+    log(f"[croco] CroCoPretrain ViT-B/16 768x12 + 512x8 decoder at 224x224, "
+        f"mask 0.9 ({n_vis} of 196 visible), batch 8: losses "
+        f"{[round(x, 4) for x in losses]}, {np.mean(secs[1:]):.3f} s a step "
+        f"after the first ({secs[0]:.2f} s), peak {peak_p:.2f} GiB | {card}")
+    log(f"[croco] train_stereoflow (flow, batch 4, 224x224): losses "
+        f"{[round(x, 4) for x in flosses]}, {flow_s:.3f} s a step; "
+        f"tiled_predict at 352x480 (6 tiles); evaluate_stereoflow EPE "
+        f"{evals['epe']:.3f} px on random-start weights | {card}")
+
+
+def dust3r_spann3r_phase(card, frames):
+    """(e) AsymmetricCroCo3DStereo at the DUSt3R_ViTLarge_BaseDecoder_512
+    widths on one 512x384 pair (linear and DPT heads), Spann3R over
+    enough 224x224 frames to evict from its ring and its arena, and an
+    upstream-layout Spann3R checkpoint loaded strictly."""
+    import dataclasses
+    import torch
+    from cut3r_slam_tpu_torch.models.blocks import init_random
+    from cut3r_slam_tpu_torch.models.convert import (SPANN3R_SKIP,
+                                                     load_spann3r_checkpoint)
+    from cut3r_slam_tpu_torch.models.dust3r_pair import (
+        AsymmetricCroCo3DStereo, Dust3rPairConfig)
+    from cut3r_slam_tpu_torch.models.spann3r import Spann3R, Spann3RConfig
+    H, W = frames[0].shape[:2]
+    norm = lambda f: torch.as_tensor(f, device="cuda").float()[None] \
+        / 127.5 - 1.0
+    for head in ("linear", "dpt"):
+        m = AsymmetricCroCo3DStereo(Dust3rPairConfig(head=head), "cuda")
+        init_random(m, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            synced(m, norm(frames[0]), norm(frames[1]))
+            (p1, p2), s = synced(m, norm(frames[0]), norm(frames[1]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(torch.isfinite(p[k]).all() for p in (p1, p2) for k in p) \
+                or p2["pts3d"].shape != (1, H, W, 3):
+            fail(f"phase 11: DUSt3R-pair ({head}) outputs not finite")
+        log(f"[dust3r] AsymmetricCroCo3DStereo 1024x24 + 2 x 768x12, "
+            f"{head} head, one {W}x{H} pair: {1e3 * s:.1f} ms (f32), peak "
+            f"{peak:.2f} GiB | {card}")
+        del m
+    cfg = Spann3RConfig()
+    model = init_random(Spann3R(cfg, device="cuda"),
+                        torch.Generator(device="cuda").manual_seed(2))
+    clips = [np.ascontiguousarray(f[80:304, 144:368]) for f in frames]
+    torch.cuda.reset_peak_memory_stats()
+    carry, secs = None, []
+    with torch.no_grad():
+        for v in range(SPANN3R_FRAMES):
+            (carry, (p0, _)), s = synced(model.step, carry,
+                                         norm(clips[v % len(clips)]))
+            secs.append(s)
+            if not torch.isfinite(p0["pts3d"]).all():
+                fail(f"phase 11: Spann3R frame {v} not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mem = carry[3]
+    P = (224 // 16) ** 2
+    overflow = (SPANN3R_FRAMES - cfg.work_mem_frames) * P \
+        - cfg.long_mem_tokens
+    if int(mem.work_head[0]) != SPANN3R_FRAMES or overflow <= 0 \
+            or not bool(mem.long_valid.all()):
+        fail("phase 11: Spann3R's memories did not both evict")
+    root = _scratch("chip_smoke_spann3r_")
+    path = os.path.join(root, "spann3r.pth")
+    extra = {"dust3r.mask_token": torch.zeros(1, 1, 1024),
+             "dust3r.enc_pos_embed": torch.zeros(1, 1024, 1024)}
+    assert all(k.startswith(tuple(SPANN3R_SKIP)) for k in extra)
+    torch.save({"model": {**{"module." + k: v.cpu() for k, v in
+                             model.state_dict().items()}, **extra}}, path)
+    fresh = Spann3R(cfg, device="cuda")
+    fresh.load_state_dict(load_spann3r_checkpoint(path), strict=True)
+    same = all(torch.equal(a, b) for a, b in zip(
+        fresh.state_dict().values(), model.state_dict().values()))
+    shutil.rmtree(root, ignore_errors=True)
+    if not same:
+        fail("phase 11: the Spann3R checkpoint did not load its tensors")
+    log(f"[spann3r] Spann3R (ViT-L DUSt3R, 6 value blocks, ring 5 frames, "
+        f"arena 4000 tokens) over {SPANN3R_FRAMES} frames at 224x224: "
+        f"{1e3 * np.mean(secs[1:]):.1f} ms a frame after the first "
+        f"({1e3 * secs[0]:.0f} ms), the arena overflowed by {overflow} "
+        f"tokens, peak {peak:.2f} GiB; an upstream-layout checkpoint "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"params) loaded strictly | {card}")
+
+
+def model_families_phase(G, card, frames, K4):
+    """Phase 11 (see the module docstring). Returns the kernels' launches
+    inside the prior run's ``SLAMSystem.run``."""
+    import torch
+    t0 = time.perf_counter()
+    launches = prior_live_loop(G, card, frames, K4)
+    for part in (omnidata_prior, linear_head_check, croco_phase,
+                 dust3r_spann3r_phase):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        if part is linear_head_check:
+            part(card)
+        else:
+            part(card, frames)
+        log(f"[phase 11] {part.__name__} in {time.perf_counter() - t1:.1f} s")
+    log(f"[phase 11] in {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def kernel_phases(G, card):
@@ -1645,6 +2087,9 @@ def main():
         fail(f"the port is not importable from {ROOT}: {e}")
     card = card_line()
 
+    def mark(done):
+        log(f"[time] {done} done at {time.perf_counter() - t_start:.1f} s")
+
     # 1. environment --------------------------------------------------------
     try:
         nvcc = subprocess.run([build.nvcc_path(), "--version"],
@@ -1668,6 +2113,7 @@ def main():
     with full_f32():
         rows = kernel_phases(G, card)
 
+    mark("phases 1-4")
     # 5. small-input agreement of a mapping event, card vs CPU --------------------
     rel = small_mapping_agreement()
     log(f"[check] 32x32 mapping event, cuda vs cpu: max rel loss diff "
@@ -1682,6 +2128,7 @@ def main():
             f"{'abs' if k.endswith('poses') and 'BA' in k else 'rel'} diff "
             f"{d:.2e}")
 
+    mark("phase 5")
     # 6. the slice ----------------------------------------------------------------
     H, W, f = 384, 512, 400.0
     t0 = time.perf_counter()
@@ -1699,6 +2146,7 @@ def main():
     slam = SLAMSystem(model, slam_cfg, buffer=64, img_hw=(H, W),
                       output_dir=out_dir, device="cuda")
     frames = synth_frames(24, H, W)
+    slice_frames = frames[:SLICE_FRAMES]
     K4 = np.asarray([f, f, W / 2, H / 2], np.float32)
     for k in G.LAUNCHES:
         G.LAUNCHES[k] = 0
@@ -1706,17 +2154,17 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     event_s, frame_s = [], []
-    for t, img in enumerate(frames):
+    for t, img in enumerate(slice_frames):
         te = time.perf_counter()
         _, viz = slam.run(t, img, K4, img_map=img, K4_map=K4,
-                          last=(t == len(frames) - 1))
+                          last=(t == len(slice_frames) - 1))
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - te)
         if viz is not None:
             event_s.append(frame_s[-1])
     run_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    slam.terminate(len(frames) - 1)
+    slam.terminate(len(slice_frames) - 1)
     torch.cuda.synchronize()
     term_s = time.perf_counter() - t1
     launches = dict(G.LAUNCHES)
@@ -1742,19 +2190,21 @@ def main():
         fail("non-finite mapping poses")
     if kf.pose.shape != (64, 7) or kf.depth.shape[1:] != (H, W):
         fail("unexpected keyframe buffer shapes")
-    log(f"[slice] {len(frames)} frames, {kf.count} keyframes, "
+    log(f"[slice] {len(slice_frames)} frames, {kf.count} keyframes, "
         f"{len(event_s)} mapping events, {alive} alive Gaussians, "
         f"median depth {float(np.median(kf.depth[:kf.count])):.3f}")
-    log(f"[slice] {len(frames) / run_s:.3f} frames/s over run() "
+    log(f"[slice] {len(slice_frames) / run_s:.3f} frames/s over run() "
         f"({run_s:.1f} s), {np.mean(event_s):.2f} s per mapping-event frame "
         f"({', '.join(f'{s:.2f}' for s in event_s)}), terminate "
         f"{term_s:.1f} s, peak memory {peak_gb:.2f} GiB | {card}")
     log(f"[slice] main-path launches: {launches}; loop closures fired: "
         f"{len(slam.backend.closed)} (random weights: none is required)")
 
+    mark("phase 6")
     # 7. the loop-closure path ------------------------------------------------------
     lc_launches = loop_closure_phase(model, G, card)
 
+    mark("phase 7")
     # 8. the demo driver at the production mapping schedule ------------------
     demo_launches, demo_max, demo_out = demo_phase(model, frames, K4, G,
                                                    card)
@@ -1762,16 +2212,24 @@ def main():
         f"{demo_max:.2f} s interleaved, production schedule (phase 8); not "
         f"a paired comparison | {card}")
 
+    mark("phase 8")
     # 9. CUT3R training (the SLAM phases' state released first) -------------
     del slam, model, m, kf, live
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = training_phase(G, card)
 
+    mark("phase 9")
     # 10. the offline evaluation chain ----------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     offline_launches, _, _ = offline_phase(demo_out, G, card)
+
+    mark("phase 10")
+    # 11. the mono prior and the other model families ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    prior_launches = model_families_phase(G, card, frames, K4)
 
     kernels = []
     for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
@@ -1787,7 +2245,8 @@ def main():
                                  "demo_production_schedule":
                                      demo_launches[name],
                                  "training": train_launches[name],
-                                 "offline_eval": offline_launches[name]},
+                                 "offline_eval": offline_launches[name],
+                                 "mono_prior": prior_launches[name]},
             "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})

@@ -6,3 +6,5 @@ from .synthscene import generate_multiview_scenes  # noqa: F401
 from .rgbd import (get_dataset, ReplicaDataset, ScanNetDataset,  # noqa: F401
                    TUMDataset)
 from .synth_replica import write_replica_sequence  # noqa: F401
+from .pairs import (homography_pair, reprojection_pair,  # noqa: F401
+                    PairDataset, make_pair_iter)

@@ -27,7 +27,36 @@ import torch.nn.functional as F
 from .rope import apply_rope2d, at_least_f32, promoted_dtype
 
 __all__ = ["Linear", "LayerNorm", "Mlp", "Attention", "CrossAttention",
-           "Block", "DecoderBlock", "ModLN", "ConditionModulationBlock"]
+           "Block", "DecoderBlock", "ModLN", "ConditionModulationBlock",
+           "init_random"]
+
+
+@torch.no_grad()
+def init_random(model: nn.Module, generator: torch.Generator,
+                std: float = 0.02, late=()):
+    """Random weights for ``model`` from ``generator``: normal(std) linear
+    and embedding weights and tokens, zero biases, unit norms, fan-in-
+    scaled convolutions. Drawn in ``named_parameters`` order, the
+    parameters whose names start with a ``late`` prefix last (so that a
+    seed gives the other parameters the same tensors as before those
+    existed). Returns ``model``."""
+    named = list(model.named_parameters())
+    is_late = [n.startswith(tuple(late)) for n, _ in named]
+    for _, (name, p) in sorted(zip(is_late, named), key=lambda t: t[0]):
+        leaf = name.rsplit(".", 1)[-1]
+        mod = model.get_submodule(name.rsplit(".", 1)[0]) \
+            if "." in name else model
+        if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "bias":
+            p.zero_()
+        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = p[0].numel() if isinstance(mod, nn.Conv2d) \
+                else p.shape[0] * p.shape[2] * p.shape[3]
+            p.normal_(0.0, fan_in ** -0.5, generator=generator)
+        else:
+            p.normal_(0.0, std, generator=generator)
+    return model
 
 
 class Linear(nn.Linear):
@@ -66,22 +95,52 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
-def _sdpa(q, k, v, scale):
-    """Softmax attention, keyed to the read, the same on both devices. A
-    read that a backward will run through, or a read with one query (the
-    pose retriever's; it costs next to nothing), computes the explicit
-    softmax(q k^T scale) v of the JAX model; any other read (inference)
-    takes the fused kernel. Against a float64 oracle
-    (tests/test_torch_f64_oracle.py, scripts/f64_oracle_card.py): on the
-    card the fused backward left the pose retriever's one-query q / k
-    weight gradients up to 8.35x further off than the JAX package's; on
-    the CPU a training step that mixed the two paths moved 285 of 532
-    tensors beyond 3x, where either path alone stayed within."""
-    if q.shape[-2] != 1 and not (q.requires_grad or k.requires_grad
-                                 or v.requires_grad):
-        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+def _softmax_read(q, k, v, scale):
+    """The explicit softmax(q k^T scale) v of the JAX model, the softmax in
+    f32 (f64 for f64 inputs)."""
     s = (q @ k.transpose(-2, -1)) * scale
     return torch.softmax(s, -1, dtype=at_least_f32(s).dtype).to(v.dtype) @ v
+
+
+class _OneQueryRead(torch.autograd.Function):
+    """``_softmax_read`` for one query, its backward recomputed in float64.
+    The q / k gradient of a one-query read (the pose retriever's) is a
+    difference of nearly equal terms: in f32 it lay 3.07x further from a
+    float64 oracle than the JAX package's (tests/test_torch_f64_oracle.py),
+    the largest ratio of any tensor; in float64 it costs next to nothing.
+    The forward is the f32 read's, so inference is unchanged."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _softmax_read(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        qd, kd, vd, gd = (t.double() for t in (q, k, v, g))
+        p = torch.softmax((qd @ kd.transpose(-2, -1)) * ctx.scale, -1)
+        dp = gd @ vd.transpose(-2, -1)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * ctx.scale
+        return ((ds @ kd).to(q.dtype), (ds.transpose(-2, -1) @ qd).to(k.dtype),
+                (p.transpose(-2, -1) @ gd).to(v.dtype), None)
+
+
+def _sdpa(q, k, v, scale):
+    """Softmax attention, keyed to the read, the same on both devices. A
+    read with one query (the pose retriever's) is ``_OneQueryRead``; a
+    read that a backward will run through computes the explicit softmax of
+    the JAX model; any other read (inference) takes the fused kernel.
+    Against a float64 oracle (tests/test_torch_f64_oracle.py,
+    scripts/f64_oracle_card.py): on the card the fused backward left the
+    pose retriever's one-query q / k weight gradients up to 8.35x further
+    off than the JAX package's."""
+    if q.shape[-2] == 1:
+        return _OneQueryRead.apply(q, k, v, scale)
+    if not (q.requires_grad or k.requires_grad or v.requires_grad):
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+    return _softmax_read(q, k, v, scale)
 
 
 class Attention(nn.Module):

@@ -8,8 +8,10 @@ included), ``forward_chunk`` / ``decode_views`` with an explicit carry
 Default config = the live checkpoint ``cut3r_512_dpt_4_64.pth`` (ViT-L/16
 encoder 1024 x 24, decoder 768 x 12, 768 register tokens, LocalMemory 256,
 a 2-block ray-map encoder, RoPE base 100, DPT self / cross / rgb / pose
-heads). Module and parameter names follow the upstream ``ARCroco3DStereo``
-state_dict so its public checkpoint loads into this model;
+heads); ``head_type="linear"`` builds the 224 checkpoints' linear head
+(``heads.LinearPts3dPose``) in their place. Module and parameter names
+follow the upstream ``ARCroco3DStereo`` state_dict so its public
+checkpoint loads into this model;
 ``models/convert.params_from_jax`` maps the JAX model's flax params into
 the same names. The decoder runs the plain per-layer interleave of the
 state and image streams (the JAX ``fused_decoder`` is a TPU restructuring
@@ -24,8 +26,8 @@ import torch
 import torch.nn as nn
 
 from .. import resolve_device
-from .blocks import Block, DecoderBlock, LayerNorm, Linear
-from .heads import DPTPts3dPose
+from .blocks import Block, DecoderBlock, LayerNorm, Linear, init_random
+from .heads import DPTPts3dPose, LinearPts3dPose
 from .patch_embed import PatchEmbed
 from .rope import at_least_f32
 
@@ -41,7 +43,8 @@ HEAD_OUTPUTS = ("self", "cross", "rgb", "pose")
 _LATE_PARAMS = ("masked_img_token", "masked_ray_map_token",
                 "patch_embed_ray_map.", "enc_blocks_ray_map.",
                 "enc_norm_ray_map.", "downstream_head.final_transform.",
-                "downstream_head.dpt_cross.", "downstream_head.dpt_rgb.")
+                "downstream_head.dpt_cross.", "downstream_head.dpt_rgb.",
+                "downstream_head.cross_proj.", "downstream_head.rgb_proj.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +67,7 @@ class CUT3RConfig:
     compute_dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        if self.head_type == "linear":
-            raise NotImplementedError(
-                "head_type='linear' (LinearPts3dPose, the 224 checkpoints) "
-                "is not ported yet")
-        if self.head_type != "dpt":
+        if self.head_type not in ("dpt", "linear"):
             raise ValueError(f"unknown head_type {self.head_type!r}")
 
     @staticmethod
@@ -166,9 +165,14 @@ class CUT3R(nn.Module):
         self.pose_retriever = LocalMemory(c.local_mem_size, c.enc_embed_dim,
                                           c.dec_embed_dim, c.dec_num_heads,
                                           dtype=dt)
-        self.downstream_head = DPTPts3dPose(
-            c.enc_embed_dim, c.dec_embed_dim, c.dec_num_heads,
-            has_rgb=c.has_rgb, rope_base=c.rope_base)
+        if c.head_type == "linear":
+            self.downstream_head = LinearPts3dPose(
+                c.dec_embed_dim, c.dec_num_heads, c.patch_size,
+                has_rgb=c.has_rgb, rope_base=c.rope_base)
+        else:
+            self.downstream_head = DPTPts3dPose(
+                c.enc_embed_dim, c.dec_embed_dim, c.dec_num_heads,
+                has_rgb=c.has_rgb, rope_base=c.rope_base)
         # the ray-map encoder: its blocks have 16 heads at every width
         self.patch_embed_ray_map = PatchEmbed(c.enc_embed_dim, c.patch_size,
                                               in_chans=6, dtype=dt)
@@ -185,28 +189,10 @@ class CUT3R(nn.Module):
     def device(self) -> torch.device:
         return self.pose_token.device
 
-    @torch.no_grad()
     def init_random(self, generator: torch.Generator, std: float = 0.02):
-        """Random weights from ``generator``: normal(std) Linear/Embedding
-        weights and tokens, zero biases, unit LayerNorms, fan-in-scaled
-        convolutions. Drawn in ``named_parameters`` order, the parameters
-        under ``_LATE_PARAMS`` last."""
-        named = list(self.named_parameters())
-        late = [n.startswith(_LATE_PARAMS) for n, _ in named]
-        for _, (name, p) in sorted(zip(late, named), key=lambda t: t[0]):
-            leaf = name.rsplit(".", 1)[-1]
-            mod = self.get_submodule(name.rsplit(".", 1)[0]) \
-                if "." in name else self
-            if isinstance(mod, nn.LayerNorm):
-                p.fill_(1.0 if leaf == "weight" else 0.0)
-            elif leaf == "bias":
-                p.zero_()
-            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-                fan_in = p[0].numel() if isinstance(mod, nn.Conv2d) \
-                    else p.shape[0] * p.shape[2] * p.shape[3]
-                p.normal_(0.0, fan_in ** -0.5, generator=generator)
-            else:
-                p.normal_(0.0, std, generator=generator)
+        """Random weights from ``generator`` (``blocks.init_random``), the
+        parameters under ``_LATE_PARAMS`` drawn last."""
+        return init_random(self, generator, std, late=_LATE_PARAMS)
 
     # ------------------------------------------------------------------
     # encoders

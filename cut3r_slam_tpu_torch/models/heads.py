@@ -10,6 +10,12 @@ the JAX heads. Module names follow the upstream ``DPTOutputAdapter_fix``
 state_dict (``act_postprocess.{i}.{j}``, ``scratch.layer{k}_rn``,
 ``scratch.refinenet{k}``, ``head.{0,2,4}``). Upsampling is torch's
 bilinear ``align_corners=True``.
+
+The heads' ReLUs go through ``relu``: inside ``ReluBranches`` they record
+their masks (input > 0) in call order, or follow the masks of another
+run, so that two runs whose pre-activations straddle zero at rounding
+level take one branch and a gradient comparison measures rounding only
+(tests/test_torch_f64_oracle.py, phase 9 of chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -22,8 +28,67 @@ import torch.nn.functional as F
 from .blocks import ConditionModulationBlock, Mlp
 from .rope import at_least_f32
 
-__all__ = ["DPTAdapter", "PoseDecoder", "DPTPts3dPose", "reg_dense_depth",
-           "reg_dense_conf", "postprocess_pose"]
+__all__ = ["DPTAdapter", "PoseDecoder", "DPTPts3dPose", "LinearPts3dPose",
+           "reg_dense_depth", "reg_dense_conf", "postprocess_pose",
+           "ReluBranches", "relu"]
+
+_BRANCHES = None  # the active ReluBranches, if any
+
+
+class ReluBranches:
+    """Context manager over every head ReLU run inside it, in call order.
+    ``ReluBranches()`` records each ReLU's mask (input > 0, on the CPU);
+    ``ReluBranches(masks)`` replays recorded masks: each ReLU returns
+    ``x * mask`` (gradient ``mask``) and must meet a mask of its shape.
+    ``flips`` counts the elements whose own sign disagreed with the mask
+    they followed, ``margin`` is the smallest |input| / max |input| over
+    all recorded or replayed ReLUs: how near a kink the inputs sat."""
+
+    def __init__(self, masks=None):
+        self.replay = masks is not None
+        self.masks = list(masks) if self.replay else []
+        self.calls = 0
+        self.flips = 0
+        self.margin = float("inf")
+
+    def __enter__(self):
+        global _BRANCHES
+        if _BRANCHES is not None:
+            raise RuntimeError("ReluBranches do not nest")
+        _BRANCHES = self
+        return self
+
+    def __exit__(self, *exc):
+        global _BRANCHES
+        _BRANCHES = None
+        if exc[0] is None and self.replay and self.calls != len(self.masks):
+            raise RuntimeError(f"{self.calls} ReLUs ran, {len(self.masks)} "
+                               "masks were recorded")
+
+    def __call__(self, x):
+        with torch.no_grad():
+            own = x > 0
+            top = float(x.abs().max())
+            if top > 0:
+                self.margin = min(self.margin, float(x.abs().min()) / top)
+        if not self.replay:
+            self.masks.append(own.cpu())
+            self.calls += 1
+            return F.relu(x)
+        if self.calls >= len(self.masks):
+            raise RuntimeError("more ReLUs ran than masks were recorded")
+        mask = self.masks[self.calls].to(x.device)
+        if mask.shape != x.shape:
+            raise RuntimeError(f"ReLU {self.calls}: mask {tuple(mask.shape)}"
+                               f" for input {tuple(x.shape)}")
+        self.calls += 1
+        self.flips += int((own != mask).sum())
+        return x * mask.to(x.dtype)
+
+
+def relu(x):
+    """F.relu, or the active ``ReluBranches``' record or replay."""
+    return F.relu(x) if _BRANCHES is None else _BRANCHES(x)
 
 
 def _resize(x, h, w):
@@ -39,7 +104,7 @@ class ResidualConvUnit(nn.Module):
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
 
     def forward(self, x):
-        return self.conv2(F.relu(self.conv1(F.relu(x)))) + x
+        return self.conv2(relu(self.conv1(relu(x)))) + x
 
 
 class FeatureFusionBlock(nn.Module):
@@ -63,6 +128,13 @@ class _Interpolate(nn.Module):
 
     def forward(self, x, size):
         return _resize(x, *size)
+
+
+class _ReLU(nn.Module):
+    """head.3 (``relu``)."""
+
+    def forward(self, x):
+        return relu(x)
 
 
 class DPTAdapter(nn.Module):
@@ -95,7 +167,7 @@ class DPTAdapter(nn.Module):
             nn.Conv2d(feature_dim, feature_dim // 2, 3, padding=1),
             _Interpolate(),
             nn.Conv2d(feature_dim // 2, last_dim, 3, padding=1),
-            nn.ReLU(),
+            _ReLU(),
             nn.Conv2d(last_dim, num_channels, 1),
         ])
 
@@ -200,4 +272,64 @@ class DPTPts3dPose(nn.Module):
             rgb = torch.sigmoid(self.dpt_rgb(x_self, img_h, img_w)) \
                 * (1 - 2 * eps) + eps
             out["rgb"] = (rgb - 0.5) * 2
+        return out
+
+
+def _unpatch(x: torch.Tensor, c: int, ps: int, img_h: int, img_w: int):
+    """(B, N, c*ps*ps) per-patch values -> (B, H, W, c), torch's
+    ``pixel_shuffle`` layout: feature f = c*ps^2 + dy*ps + dx."""
+    B = x.shape[0]
+    x = x.reshape(B, img_h // ps, img_w // ps, c, ps, ps)
+    return x.permute(0, 1, 4, 2, 5, 3).reshape(B, img_h, img_w, c)
+
+
+class LinearPts3dPose(nn.Module):
+    """The linear head of the 224 checkpoints: MLP projections (hidden
+    ``mlp_ratio`` x D) of the final decoder tokens to per-patch (3 + 1)
+    channel values; the cross pointmap runs the tokens through two
+    pose-conditioned ``final_transform`` blocks first, as the DPT head
+    does; the self pointmap's z is made non-negative (``pos_z``)."""
+
+    def __init__(self, dec_embed_dim: int, dec_num_heads: int = 12,
+                 patch_size: int = 16, mlp_ratio: float = 4.0,
+                 has_rgb: bool = False, rope_base: float = 100.0):
+        super().__init__()
+        ps, hidden = patch_size, int(mlp_ratio * dec_embed_dim)
+        self.patch_size, self.has_rgb = ps, has_rgb
+        self.pose_head = PoseDecoder(dec_embed_dim)
+        self.proj = Mlp(dec_embed_dim, hidden, ps * ps * 4)
+        self.final_transform = nn.ModuleList([
+            ConditionModulationBlock(dec_embed_dim, dec_num_heads,
+                                     use_rope=True, rope_base=rope_base)
+            for _ in range(2)])
+        self.cross_proj = Mlp(dec_embed_dim, hidden, ps * ps * 4)
+        if has_rgb:
+            self.rgb_proj = Mlp(dec_embed_dim, hidden, ps * ps * 3)
+
+    def forward(self, hook_tokens, img_h: int, img_w: int, pos,
+                outputs=("self", "cross", "rgb", "pose")):
+        pose_token = at_least_f32(hook_tokens[-1][:, 0])
+        token = at_least_f32(hook_tokens[-1][:, 1:])
+        ps, N = self.patch_size, token.shape[1]
+        out = {}
+        if "pose" in outputs:
+            out["camera_pose"] = postprocess_pose(self.pose_head(pose_token))
+        if "self" in outputs:
+            so = _unpatch(self.proj(token), 4, ps, img_h, img_w)
+            out["pts3d_in_self_view"] = reg_dense_depth(so[..., :3],
+                                                        pos_z=True)
+            out["conf_self"] = reg_dense_conf(so[..., 3])
+        if "cross" in outputs:
+            tc = token
+            pos_img = None if pos is None else pos[:, -N:]
+            for blk in self.final_transform:
+                tc = blk(tc, pose_token, pos_img)
+            co = _unpatch(self.cross_proj(at_least_f32(tc)), 4, ps, img_h,
+                          img_w)
+            out["pts3d_in_other_view"] = reg_dense_depth(co[..., :3])
+            out["conf"] = reg_dense_conf(co[..., 3])
+        if self.has_rgb and "rgb" in outputs:
+            eps = 1e-6
+            rgb = _unpatch(self.rgb_proj(token), 3, ps, img_h, img_w)
+            out["rgb"] = (torch.sigmoid(rgb) * (1 - 2 * eps) + eps - 0.5) * 2
         return out

@@ -4,7 +4,9 @@ keyframe.py``).
 Small per-frame metadata (poses, timestamps, intrinsics, images, depths)
 lives in host numpy; the bulky per-keyframe tensors the tracking stages
 read (encoder tokens, submap pointmaps/confidences, half-res pointmaps)
-live on the device in preallocated buffers written in place.
+live on the device in preallocated buffers written in place. With the
+mono prior on, each keyframe's prior depth and normal maps are kept on
+the host (``prior_depth``, ``prior_normal``).
 """
 from __future__ import annotations
 
@@ -48,6 +50,18 @@ class KeyframeStore:
         self.submap_conf = torch.zeros(n_submaps, SUBMAP_SIZE + 1, H // 2,
                                        W // 2, device=dev)
         self.pts_ds = torch.zeros(capacity, H // 2, W // 2, 3, device=dev)
+
+        # mono-prior maps, host numpy; allocated by ensure_prior_buffers()
+        # when the configuration turns the prior on
+        self.prior_depth: Optional[np.ndarray] = None
+        self.prior_normal: Optional[np.ndarray] = None
+
+    def ensure_prior_buffers(self):
+        if self.prior_depth is None:
+            H, W = self.img_hw
+            self.prior_depth = np.zeros((self.capacity, H, W), np.float32)
+            self.prior_normal = np.zeros((self.capacity, H, W, 3),
+                                         np.float32)
 
     def append(self, tstamp: int, image: np.ndarray,
                feat: Optional[torch.Tensor] = None,

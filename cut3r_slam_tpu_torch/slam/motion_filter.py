@@ -3,6 +3,9 @@
 last two frames; either a fixed ``kf_every`` interval, or every ``skip``
 frames encode the image with the CUT3R ViT encoder and take it when the
 patch-feature overlap with the previous keyframe drops below ``thresh``.
+With a mono prior (``prior = (depth_fn, normal_fn)``, each taking the
+(H, W, 3) uint8 image), every keyframe's prior maps are computed here and
+stored in the keyframe store's prior buffers.
 """
 from __future__ import annotations
 
@@ -31,12 +34,16 @@ def patch_overlap_ratio(feat0: torch.Tensor, feat1: torch.Tensor,
 
 class MotionFilter:
     def __init__(self, model: CUT3R, keyframes: KeyframeStore,
-                 thresh: float = 0.9, skip: int = 5, kf_every: int = 0):
+                 thresh: float = 0.9, skip: int = 5, kf_every: int = 0,
+                 prior=None):
         self.model = model
         self.keyframes = keyframes
         self.thresh = float(thresh)
         self.skip = int(skip)
         self.kf_every = int(kf_every)
+        self.prior = prior
+        if prior is not None:
+            keyframes.ensure_prior_buffers()
 
     @torch.inference_mode()
     def encode(self, image_u8: np.ndarray) -> torch.Tensor:
@@ -67,6 +74,21 @@ class MotionFilter:
             ratio = float(patch_overlap_ratio(kf.last_feat(), feat))
             take = ratio < self.thresh
         if take:
-            kf.append(tstamp, image_u8, feat, pose, depth, intrinsic,
-                      image_map, intrinsic_map)
+            i = kf.append(tstamp, image_u8, feat, pose, depth, intrinsic,
+                          image_map, intrinsic_map)
+            self._store_priors(i, image_u8)
         return take
+
+    @torch.inference_mode()
+    def _store_priors(self, idx: int, image_u8: np.ndarray):
+        if self.prior is None:
+            return
+        depth_fn, normal_fn = self.prior
+        kf = self.keyframes
+        kf.prior_depth[idx] = _host(depth_fn(image_u8))
+        kf.prior_normal[idx] = _host(normal_fn(image_u8))
+
+
+def _host(x) -> np.ndarray:
+    return x.float().cpu().numpy() if torch.is_tensor(x) \
+        else np.asarray(x, np.float32)

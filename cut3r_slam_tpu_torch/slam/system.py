@@ -14,9 +14,13 @@ With ``Mapping.interleave`` = n > 0 a mapping event is a generator
 densification, the final global BA, the optional trajectory fill, the
 rendering eval (``psnr/<it>/*.json``, ``renders_kf/``) and the render
 export, the mapper checkpoint and the Gaussian PLY. ``reset_state``
-empties every store for a second sequence. The configuration ported is
-one device, no mono prior, no GUI; asking for either, or for
-view-parallel mapping, raises NotImplementedError.
+empties every store for a second sequence. ``motion_filter.use_prior``
+computes a monocular depth and normal prior per keyframe (``PriorNet``,
+from random weights or a ``prior_ckpt`` npz of the JAX package's flax
+params, or Omnidata DPT-hybrid from ``omnidata_ckpt_{depth,normal}``),
+stored in the keyframe store; no mapping loss reads it, as in the JAX
+package. The configuration ported is one device and no GUI; asking for
+the GUI or for view-parallel mapping raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,6 +33,10 @@ import torch
 
 from .. import full_f32, resolve_device
 from ..models import CUT3R
+from ..models.blocks import init_random
+from ..models.convert import params_from_jax
+from ..models.omnidata import load_omnidata_ckpt, resize_bilinear
+from ..models.priors import PriorNet, normalize_imagenet
 from ..geometry.lie import se3_from_matrix, se3_matrix
 from ..geometry.pointmap import pose_vec_to_matrix
 from ..utils.image import CompressedFrameStore
@@ -64,8 +72,6 @@ class SLAMSystem:
         mcfg = cfg.get("Mapping", {})
         trcfg = cfg.get("Training", {})
         mf_cfg = tcfg.get("motion_filter", {})
-        if bool(mf_cfg.get("use_prior", False)):
-            _not_ported("the mono prior (motion_filter.use_prior)")
         if bool(cfg.get("GUI", {}).get("active", False)):
             _not_ported("the live viewer (GUI.active)")
         if int(mcfg.get("view_parallel", 0)) > 1:
@@ -77,10 +83,14 @@ class SLAMSystem:
         self.keyframes = KeyframeStore(
             buffer, img_hw, (H // 16) * (W // 16), model.cfg.enc_embed_dim,
             map_hw=self.map_hw, device=self.device)
+        prior = None
+        if bool(mf_cfg.get("use_prior", False)):
+            prior = build_prior_fns(mf_cfg, (H, W), self.device)
         self.filter = MotionFilter(model, self.keyframes,
                                    thresh=mf_cfg.get("thresh", 0.9),
                                    skip=mf_cfg.get("skip", 5),
-                                   kf_every=mf_cfg.get("kf_every", 0))
+                                   kf_every=mf_cfg.get("kf_every", 0),
+                                   prior=prior)
         self.graph = FactorGraph()
         self.frontend = TrackFrontend(model, self.keyframes, self.graph)
         # the JAX SLAMSystem reads these three backend keys only (it keeps
@@ -153,6 +163,8 @@ class SLAMSystem:
         kf = KeyframeStore(old.capacity, old.img_hw, int(old.featI.shape[1]),
                            int(old.featI.shape[2]), map_hw=old.map_hw,
                            device=self.device)
+        if self.filter.prior is not None:
+            kf.ensure_prior_buffers()
         self.keyframes = kf
         self.filter.keyframes = kf
         self.frontend.keyframes = kf
@@ -614,6 +626,63 @@ class SLAMSystem:
                     f"{v:.9f}" for v in kf.pose[i]) + "\n")
         np.save(os.path.join(os.path.dirname(path) or ".", "intrinsics.npy"),
                 kf.intrinsic[: kf.count][order])
+
+
+def build_prior_fns(mf_cfg: Dict, img_hw, device):
+    """The mono prior of ``motion_filter``: (depth_fn, normal_fn), each
+    (H, W, 3) uint8 image -> (H, W) depth / (H, W, 3) normal map on
+    ``device``. Omnidata DPT-hybrid when ``omnidata_ckpt_depth`` or
+    ``omnidata_ckpt_normal`` names a checkpoint (the image resized to
+    multiples of 32 and the output back, as ``jax.image.resize``
+    "bilinear"; a task without a checkpoint gives zeros); else
+    ``PriorNet`` depth and normal nets of ``prior_dim`` width and
+    ``prior_depth_blocks`` blocks with ``max(prior_dim // 64, 1)`` heads,
+    their weights from the ``prior_ckpt`` npz (the JAX package's flax
+    params, flattened under ``depth/`` and ``normal/``) or random (seeds 0
+    and 1)."""
+    H, W = img_hw
+    omni = {t: mf_cfg.get(f"omnidata_ckpt_{t}") for t in ("depth", "normal")}
+    if any(omni.values()):
+        def make(task):
+            if omni[task]:
+                return omnidata_prior_fn(
+                    load_omnidata_ckpt(omni[task], task, device), img_hw)
+            shape = (H, W) if task == "depth" else (H, W, 3)
+            return lambda img: torch.zeros(shape, device=device)
+        return make("depth"), make("normal")
+
+    dim = int(mf_cfg.get("prior_dim", 384))
+    depth = int(mf_cfg.get("prior_depth_blocks", 12))
+    ckpt = mf_cfg.get("prior_ckpt")
+    raw = np.load(ckpt) if ckpt else None
+    fns = []
+    for seed, task in enumerate(("depth", "normal")):
+        net = PriorNet(task, dim, depth, max(dim // 64, 1), device=device)
+        if raw is not None:
+            pre = task + "/"
+            net.load_state_dict(params_from_jax(
+                {k[len(pre):]: raw[k] for k in raw.files
+                 if k.startswith(pre)}), strict=True)
+        else:
+            init_random(net, torch.Generator(device=device).manual_seed(seed))
+        net.eval()
+        fns.append(lambda img, net=net: net(normalize_imagenet(
+            torch.as_tensor(np.asarray(img), device=device))[None])[0])
+    return tuple(fns)
+
+
+def omnidata_prior_fn(net, img_hw):
+    """An Omnidata net as a prior function: the (H, W, 3) uint8 image in
+    [0, 1] resized to multiples of 32, the net, its map resized back to
+    (H, W) (``jax.image.resize`` "bilinear" both ways)."""
+    H, W = img_hw
+    Hn, Wn = max(32, round(H / 32) * 32), max(32, round(W / 32) * 32)
+
+    def fn(img):
+        x = torch.as_tensor(np.asarray(img), device=net.device)
+        return resize_bilinear(net(resize_bilinear(
+            x[None].float() / 255.0, Hn, Wn)), H, W)[0]
+    return fn
 
 
 def _resize_f(arr: np.ndarray, w: int, h: int) -> np.ndarray:

@@ -11,6 +11,9 @@ optax's order of operations:
 * weight decay is added to the Adam direction of EVERY parameter,
   biases and norms included, also where a parameter got no gradient
   (its gradient counts as zero), as ``optax.adamw`` does without a mask;
+* ``b2`` and ``max_norm`` default to the JAX train step's; the stereo /
+  flow harness (``train/stereoflow.py``) runs optax's plain ``adamw``
+  (b2 = 0.999, no clip: ``max_norm=None``);
 * with ``accum_steps = k`` the running mean of k micro-gradients is
   applied on every k-th ``step`` and the parameters stay exactly as they
   are in between; the schedule and Adam's bias correction count applied
@@ -23,7 +26,7 @@ the decoder in chunks whose carry is detached between chunks, the last
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -65,10 +68,12 @@ class AdamW(torch.optim.Optimizer):
 
     def __init__(self, params, lr: float = 1e-4, weight_decay: float = 0.05,
                  warmup_steps: int = 100, total_steps: int = 100_000,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, b2: float = B2,
+                 max_norm: Optional[float] = MAX_NORM):
         defaults = dict(lr=lr, weight_decay=weight_decay,
                         warmup_steps=warmup_steps, total_steps=total_steps,
-                        accum_steps=accum_steps, count=0, mini_step=0)
+                        accum_steps=accum_steps, b2=b2, max_norm=max_norm,
+                        count=0, mini_step=0)
         super().__init__(params, defaults)
         if len(self.param_groups) != 1:
             raise ValueError("AdamW takes one parameter group")
@@ -108,18 +113,20 @@ class AdamW(torch.optim.Optimizer):
             grads = [a.clone() for a in acc]
             torch._foreach_zero_(acc)
 
-        # clip_by_global_norm: t / |g| * MAX_NORM where |g| >= MAX_NORM
-        # (for MAX_NORM = 1 dividing by |g| / MAX_NORM is the same value).
+        # clip_by_global_norm: t / |g| * max_norm where |g| >= max_norm
+        # (for max_norm = 1 dividing by |g| / max_norm is the same value).
         # The squares accumulate in f64: torch's f32 norm on the CPU sums
         # a tensor's squares with a relative error growing with its size
         # (9e-6 at 1 M elements, 6e-5 at 4 M), which scaled every clipped
         # gradient by that error; optax's XLA reduction has none of it.
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(t, dtype=torch.float64)
-             for t in grads])).to(grads[0].dtype)
-        denom = torch.where(norm < MAX_NORM, torch.ones_like(norm),
-                            norm / MAX_NORM)
-        torch._foreach_div_(grads, denom)
+        max_norm, b2 = g["max_norm"], g["b2"]
+        if max_norm is not None:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(t, dtype=torch.float64)
+                 for t in grads])).to(grads[0].dtype)
+            denom = torch.where(norm < max_norm, torch.ones_like(norm),
+                                norm / max_norm)
+            torch._foreach_div_(grads, denom)
 
         count = g["count"]
         c = count + 1
@@ -127,10 +134,10 @@ class AdamW(torch.optim.Optimizer):
         nu = [self.state[p]["nu"] for p in params]
         torch._foreach_mul_(mu, B1)
         torch._foreach_add_(mu, grads, alpha=1 - B1)
-        torch._foreach_mul_(nu, B2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1 - B2)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
         bc1 = 1 - float(np.float32(B1) ** np.float32(c))
-        bc2 = 1 - float(np.float32(B2) ** np.float32(c))
+        bc2 = 1 - float(np.float32(b2) ** np.float32(c))
         den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, EPS)

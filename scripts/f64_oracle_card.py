@@ -39,8 +39,12 @@ rounding lies far below the distances compared) and runs, in f32 under
 
 The distance of a tensor is the norm of its difference over (the
 reference tensor's norm + 1e-6 of the largest); tensors below that floor
-are left out. ``--out`` writes the report as JSON. The port half imports
-nothing of JAX.
+are left out. Every run follows the oracle's branch at each ReLU of the
+heads (``heads.ReluBranches``: the oracle records its masks, each f32 run
+replays them and counts the elements whose own sign disagreed), so a
+distance measures rounding only, as in the test and in phase 9. The JAX
+half's distances are those of an unreplayed JAX step. ``--out`` writes
+the report as JSON. The port half imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -127,6 +131,7 @@ def port_half(work, out):
     from cut3r_slam_tpu_torch import full_f32
     from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig, blocks
     from cut3r_slam_tpu_torch.models.convert import params_from_jax
+    from cut3r_slam_tpu_torch.models.heads import ReluBranches
     from cut3r_slam_tpu_torch.train import train_step as TS
     if not torch.cuda.is_available():
         sys.exit("the port half needs a CUDA device")
@@ -138,7 +143,7 @@ def port_half(work, out):
     phase9_state = {k: v.clone() for k, v in init.state_dict().items()}
     b2, b4 = phase9_batches(tempfile.mkdtemp(prefix="f64_oracle_p9_"))
 
-    def mu_after(state, make, batch, device, dtype, warmup):
+    def mu_after(state, make, batch, device, dtype, warmup, branches):
         m = CUT3R(CUT3RConfig.tiny(), device=device)
         m.load_state_dict(state, strict=True)
         m = m.to(dtype)
@@ -147,7 +152,8 @@ def port_half(work, out):
         b = {k: (v.astype(np.float64) if dtype == torch.float64
                  and isinstance(v, np.ndarray) and v.dtype == np.float32
                  else v) for k, v in batch.items()}
-        make(m, opt)(b)
+        with branches:
+            make(m, opt)(b)
         return {n: opt.state[p]["mu"].detach().cpu().double()
                 for n, p in m.named_parameters()}
 
@@ -179,15 +185,16 @@ def port_half(work, out):
                 "card fused cuDNN": ("cuda", fused, True),
                 "card explicit": ("cuda", explicit, False)}
 
-    def run(step, name):
+    def run(step, name, masks):
         state, make, batch, warmup = steps[step]
         device, attention, cudnn = variants[name]
         path = blocks._sdpa
         blocks._sdpa = attention or path
         torch.backends.cudnn.enabled = cudnn
+        replay = ReluBranches(masks)
         try:
             return mu_after(state, make, batch, device, torch.float32,
-                            warmup)
+                            warmup, replay), replay.flips
         finally:
             blocks._sdpa = path
             torch.backends.cudnn.enabled = False
@@ -199,22 +206,25 @@ def port_half(work, out):
           f"{max(jax_d.values()):.3e}")
     with full_f32():
         for step, (state, make, batch, warmup) in steps.items():
+            rec = ReluBranches()
             oracle = mu_after(state, make, batch, "cpu", torch.float64,
-                              warmup)
+                              warmup, rec)
             names = (["port cpu", "cpu fused", "cpu one-query", "port card",
                       "card cuDNN", "card fused", "card fused cuDNN"]
                      if step == "test step" else
                      ["port cpu", "port card", "card cuDNN", "card fused",
                       "card explicit"])
-            runs = {name: run(step, name) for name in names}
-            for name, mu in runs.items():
+            runs = {name: run(step, name, rec.masks) for name in names}
+            for name, (mu, flips) in runs.items():
                 d = distances(mu, oracle)
                 worst = max(d, key=d.get)
                 row = {"median": float(np.median(list(d.values()))),
                        "worst": d[worst], "worst_tensor": worst,
-                       "tensors": len(d)}
+                       "tensors": len(d), "relu_flips": flips,
+                       "relu_margin": rec.margin}
                 line = (f"{step:18s} {name:16s} median {row['median']:.3e} "
-                        f"worst {d[worst]:.3e} ({worst})")
+                        f"worst {d[worst]:.3e} ({worst}); {flips} ReLU "
+                        f"elements against their sign")
                 if step == "test step":
                     far = [k for k in d if d[k] > 3 * jax_d[k] + 1e-6]
                     row["largest_ratio_to_jax"] = max(
@@ -224,7 +234,7 @@ def port_half(work, out):
                              f"{row['largest_ratio_to_jax']:.2f}; beyond 3x "
                              f"JAX + 1e-6: {len(far)} of {len(d)}")
                 elif name != "port cpu":
-                    vs = distances(mu, runs["port cpu"])
+                    vs = distances(mu, runs["port cpu"][0])
                     w = max(vs, key=vs.get)
                     row["vs_cpu_worst"], row["vs_cpu_tensor"] = vs[w], w
                     line += f"; vs the CPU run {vs[w]:.3e} ({w})"

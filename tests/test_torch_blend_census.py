@@ -19,6 +19,16 @@ from cut3r_slam_tpu_torch.ops import gs_raster_cuda as G
 from cut3r_slam_tpu_torch.ops.gs_raster import ALPHA_MIN, T_MIN
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this module's CPU work (under ``pytest -n``
+    every worker's default pool spans all cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _walk(A, ext):
     """(rejected, stopping, blended) pairs by a sequential walk over each
     pixel's entries in float64: a stopping pair ends the pixel's walk."""

@@ -22,6 +22,8 @@ from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
 from cut3r_slam_tpu_torch.models.convert import params_from_jax
 from cut3r_slam_tpu_torch.models.cut3r import normalize_images
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 H, W = 32, 48
 V = 3
 

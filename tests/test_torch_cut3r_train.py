@@ -16,6 +16,7 @@ Also pinned here: ``init_random`` draws the tracking slice's parameters
 exactly as before the training modules existed (a checksum of the 394
 tensors of the tiny model at seed 0, taken before they were added).
 """
+import dataclasses
 import hashlib
 import math
 
@@ -223,8 +224,15 @@ def test_init_random_keeps_the_tracking_tensors():
 
 
 def test_linear_head_and_fsdp_raise():
+    """``fsdp > 1`` is refused; ``head_type="linear"`` builds the linear
+    head (held against JAX in tests/test_torch_linear_head.py) and an
+    unknown head type raises."""
+    from cut3r_slam_tpu_torch.models.heads import LinearPts3dPose
     from cut3r_slam_tpu_torch.train.trainer import TrainerConfig, train
-    with pytest.raises(NotImplementedError, match="linear"):
-        CUT3RConfig(head_type="linear")
+    m = CUT3R(dataclasses.replace(CUT3RConfig.tiny(), head_type="linear"),
+              device="cpu")
+    assert isinstance(m.downstream_head, LinearPts3dPose)
+    with pytest.raises(ValueError, match="head_type"):
+        CUT3RConfig(head_type="conv")
     with pytest.raises(NotImplementedError, match="fsdp"):
         train(None, iter(()), TrainerConfig(fsdp=2), device="cpu")

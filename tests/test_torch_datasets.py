@@ -22,6 +22,8 @@ from cut3r_slam_tpu_torch.datasets import loaders as TLd
 from cut3r_slam_tpu_torch.datasets import multiview as TMv
 from cut3r_slam_tpu_torch.datasets import synthscene as TSy
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 HW = (24, 32)
 
 

@@ -19,12 +19,22 @@ whose oracle lies below that floor are zero to rounding and left out. The
 port must lie within 3x the JAX package's distance + 1e-6 on every
 tensor. ``pytest -s`` prints both packages' worst tensors.
 
+All four runs take one branch at every ReLU of the heads: the oracle
+records its masks (``heads.ReluBranches``) and the port's f32 run and
+both JAX runs replay them (the JAX heads' ``nn.relu`` shadowed for this
+test only). A pre-activation within rounding of zero would otherwise
+flip one element's gradient path in one run and shift every tensor
+upstream of it by ~1e-5, far beyond f32 rounding; the test prints how
+many elements replayed against their own sign and the smallest margin
+|x| / max |x| met, so a check that sits on a kink shows.
+
 The port's f32 rounding on the CPU depends on the intra-op thread count
 (oneDNN partitions its convolutions' reductions by thread; at 8 threads
 208 tensors lie beyond 3x, at 2 threads three of the pose retriever's
 one-query read, at 1, 3 and 4 threads none), so the module runs on one
 thread: the reproducible configuration.
 """
+import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
@@ -40,7 +50,7 @@ from cut3r_slam_tpu.models import CUT3R as JCUT3R, CUT3RConfig as JConfig
 from cut3r_slam_tpu.models import (blocks as JB, cut3r as JC, heads as JH,
                                    patch_embed as JP, rope as JR)
 from cut3r_slam_tpu.train import train_step as JS
-from cut3r_slam_tpu_torch.models.convert import params_from_jax
+from cut3r_slam_tpu_torch.models.heads import ReluBranches
 from cut3r_slam_tpu_torch.train import train_step as TS
 
 from test_torch_cut3r_train import (jax_params, jax_tiny_params,
@@ -65,13 +75,44 @@ def setup(tmp_path_factory):
     return jax_tiny_params(seed=1), batch
 
 
-def port_mu(flat, batch, dtype):
+def port_mu(flat, batch, dtype, branches=None):
+    """The port's Adam first moment after one step; ReLUs recorded or
+    replayed by ``branches`` (a ``ReluBranches``) when given."""
     tm = torch_from_flat(flat).to(dtype)
     opt = TS.make_optimizer(tm.parameters(), **OPT)
     b = {k: (v.astype(np.float64) if dtype == torch.float64
              and v.dtype == np.float32 else v) for k, v in batch.items()}
-    TS.make_train_step(tm, opt)(b)
+    if branches is None:
+        TS.make_train_step(tm, opt)(b)
+    else:
+        with branches:
+            TS.make_train_step(tm, opt)(b)
     return {n: opt.state[p]["mu"].double() for n, p in tm.named_parameters()}
+
+
+class JaxReplay:
+    """``nn.relu`` for the JAX heads following recorded port masks (NCHW,
+    in call order) while a step is traced: ``x * mask``."""
+
+    def __init__(self, masks):
+        self.masks = [np.transpose(m.numpy(), (0, 2, 3, 1)) for m in masks]
+        self.calls = 0
+
+    def __call__(self, x):
+        m = self.masks[self.calls]
+        assert m.shape == x.shape, (self.calls, m.shape, x.shape)
+        self.calls += 1
+        return x * jnp.asarray(m, x.dtype)
+
+
+@contextlib.contextmanager
+def replaying(masks):
+    """The JAX heads' ReLUs replay ``masks`` inside the block; yields the
+    ``JaxReplay`` (its ``calls``)."""
+    replay = JaxReplay(masks)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(JH, "nn", _Shadow(JH.nn, relu=replay))
+        yield replay
 
 
 def jax_step(flat, batch, x64):
@@ -143,18 +184,28 @@ def distances(mu, oracle):
     return out
 
 
-def test_f32_gradients_against_the_f64_oracle(setup, monkeypatch):
+def test_f32_gradients_against_the_f64_oracle(setup):
     flat, batch = setup
+    rec = ReluBranches()
+    oracle = port_mu(flat, batch, torch.float64, rec)
+    assert all(v.dtype == torch.float64 for v in oracle.values())
     # the f32 JAX step is traced before the f64 one shadows the model's
     # globals, and compiles beside the rest
-    lowered, args = jax_step(flat, batch, x64=False)
+    with replaying(rec.masks) as replay:
+        lowered, args = jax_step(flat, batch, x64=False)
+    assert replay.calls == len(rec.masks)
     with ThreadPoolExecutor(1) as pool:
         compiled = pool.submit(lowered.compile)
-        oracle = port_mu(flat, batch, torch.float64)
-        assert all(v.dtype == torch.float64 for v in oracle.values())
-        d_port = distances(port_mu(flat, batch, torch.float32), oracle)
-        d_j64 = distances(jax_mu_all_f64(flat, batch, monkeypatch), oracle)
+        port = ReluBranches(rec.masks)
+        d_port = distances(port_mu(flat, batch, torch.float32, port), oracle)
+        with replaying(rec.masks) as replay:
+            d_j64 = distances(jax_mu_all_f64(flat, batch, pytest.MonkeyPatch),
+                              oracle)
+        assert replay.calls == len(rec.masks)
         d_jax = distances(first_moment(compiled.result(), args), oracle)
+    print(f"\nReLU branches: {len(rec.masks)} ReLUs, the f32 port against "
+          f"the oracle's masks on {port.flips} elements; smallest margin "
+          f"|x| / max|x| {rec.margin:.2e}")
     assert set(d_port) == set(d_jax) == set(d_j64) and len(d_port) > 300
     wp = max(d_port, key=d_port.get)
     wj = max(d_jax, key=d_jax.get)

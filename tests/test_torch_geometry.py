@@ -11,6 +11,8 @@ from cut3r_slam_tpu.geometry import lie as jlie, quaternion as jq, \
     pointmap as jpm
 from cut3r_slam_tpu_torch.geometry import lie, quaternion as q_, pointmap
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 RNG = np.random.default_rng(0)
 
 

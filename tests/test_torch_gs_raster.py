@@ -27,6 +27,8 @@ from cut3r_slam_tpu.ops.gs_raster_pallas import (
 from cut3r_slam_tpu_torch.ops.gs_raster import RasterizeConfig, rasterize
 from cut3r_slam_tpu_torch.ops import gs_raster_cuda as G
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 H, W = 32, 32
 K4 = np.asarray([40.0, 40.0, W / 2, H / 2], np.float32)
 JCFG = JConfig(height=H, width=W, max_dup=16, max_per_tile=64, chunk=32,

@@ -17,6 +17,16 @@ SOURCES = sorted((ROOT / "cut3r_slam_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this module's CPU work (under ``pytest -n``
+    every worker's default pool spans all cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _imported(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -41,6 +51,12 @@ def test_every_module_imports_without_building():
     for name in names:
         importlib.import_module(name)
     assert len(names) >= 25
+    # the mono prior, the CroCo / DUSt3R / Spann3R families and the
+    # stereo / flow harness are modules of the port
+    assert {f"cut3r_slam_tpu_torch.{m}" for m in (
+        "models.priors", "models.omnidata", "models.croco_pretrain",
+        "models.dust3r_pair", "models.spann3r", "datasets.pairs",
+        "train.stereoflow")} <= set(names)
     assert build._LOADED == {}
 
 

@@ -17,6 +17,8 @@ from cut3r_slam_tpu_torch.models.convert import CKPT_SKIP, \
     load_cut3r_checkpoint, params_from_jax
 from cut3r_slam_tpu_torch.utils import image as TI
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 
 def _write(folder, names, hw=(30, 50), seed=0):
     import cv2

@@ -31,6 +31,16 @@ CFG = RasterizeConfig(height=H, width=W, max_dup=16, max_per_tile=64,
                       chunk=32, kernel_size=0.1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this module's CPU work (under ``pytest -n``
+    every worker's default pool spans all cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

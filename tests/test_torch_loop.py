@@ -44,6 +44,8 @@ from test_backend_loop import (_apply_T, _drift_mats, _grid_points,
                                _seam_err, H, W, h, w)
 import test_e2e_gt_loop as e2e
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 LR = 5e-4
 XI_TOL = 2 * LR      # two Adam steps, after 300
 PTS_TOL = 5e-3       # pointmaps moved by corrections XI_TOL apart

@@ -28,6 +28,8 @@ from cut3r_slam_tpu.geometry.lie import se3_exp as j_se3_exp, \
 from cut3r_slam_tpu_torch import full_f32
 from cut3r_slam_tpu_torch.slam.mapping import MappingBackend, MappingConfig
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 H, W = 32, 32
 K4 = np.array([40.0, 40.0, W / 2, H / 2], np.float32)
 CFG = dict(height=H, width=W, capacity=2048, cam_capacity=8, window_size=3,

@@ -13,6 +13,8 @@ from cut3r_slam_tpu.datasets import synth_replica as JS
 from cut3r_slam_tpu_torch.datasets import rgbd as TR
 from cut3r_slam_tpu_torch.datasets import synth_replica as TS
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 HW = (36, 64)
 K4 = (JS.REPLICA_K4 * np.float32(64 / 1200)).astype(np.float32)
 

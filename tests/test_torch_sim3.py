@@ -20,6 +20,8 @@ from cut3r_slam_tpu_torch.geometry import lie as TL
 from cut3r_slam_tpu_torch.slam import sim3_pgo as TS
 from cut3r_slam_tpu_torch.slam.keyframe import KeyframeStore
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 TOL = dict(atol=1e-5, rtol=1e-4)
 
 

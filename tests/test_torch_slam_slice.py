@@ -24,6 +24,8 @@ from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
 from cut3r_slam_tpu_torch.models.convert import params_from_jax
 from cut3r_slam_tpu_torch.slam.system import SLAMSystem
 
+from test_torch_cut3r_train import few_threads  # noqa: F401
+
 H, W = 32, 48
 N_FRAMES = 23
 K4 = np.asarray([40.0, 40.0, W / 2, H / 2], np.float32)
@@ -129,13 +131,13 @@ def test_terminate_outputs(runs):
 
 
 @pytest.mark.parametrize("cfg, kwargs", [
-    ({"Tracking": {"motion_filter": {"use_prior": True}}}, {}),
     ({"GUI": {"active": True}}, {}),
     ({"Mapping": {"view_parallel": 2}}, {}),
-], ids=["prior", "gui", "view_parallel"])
+], ids=["gui", "view_parallel"])
 def test_unported_settings_raise(cfg, kwargs, tmp_path):
     """Every branch of the JAX SLAMSystem that the port does not have yet
-    is refused when asked for, not silently skipped."""
+    is refused when asked for, not silently skipped (the mono prior is
+    ported: tests/test_torch_prior.py)."""
     model = CUT3R(CUT3RConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         SLAMSystem(model, cfg, buffer=4, img_hw=(H, W),
