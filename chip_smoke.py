@@ -126,6 +126,29 @@ Phases (any failure exits nonzero, and no result line is printed):
    over 28 frames at 224x224 (the 5-frame ring and the 4000-token arena
    both evict), and an upstream-layout Spann3R checkpoint loaded
    strictly;
+12. the DROID stack, the shared math and the live viewer: (a)
+   ``DroidNet`` at its full widths (fnet 128, cnet 256, 128-plane GRU;
+   random weights from a seed) on 7 of phase 6's frames at 384x512 (1/8
+   grid 48x64), the 22 edges |i - j| <= 2, fixedp 2, 12 GRU steps x 2 BA
+   iterations: a forward's CUDA-event time and peak memory, one
+   value-and-grad step of mean |residual| at num_steps 2 (finite loss,
+   nonzero gradient), the oracle-target ``bundle_adjust`` on the same
+   clip (a perturbed pose's error down >= 10x, as
+   tests/test_droid_convergence.py), and card vs CPU in f32 at a small
+   shape: ``projective_transform`` with its Jacobians and ``corr_lookup``
+   (1e-5 + 1e-5 relative), ``bundle_adjust``, ``moba`` and ``jdsa`` (1e-5
+   + 1e-4 relative), one ``DroidNet`` forward at num_steps 2 (1e-4 + 1e-4
+   relative); K1 and K2 must not launch; (b) ``tv_loss``, ``sobel_edges``,
+   ``gaussian_blur`` (1e-6) and the robust Sim(3) of a 384x512 point-map
+   pair (1e-5 on the scale, 1e-4 on R and t) card vs CPU; (c)
+   ``SLAMSystem`` with ``GUI: {active: true, port: 0}`` over phase 6's
+   first 8 frames, a keyframe each (full-width CUT3R, phase 6's mapping
+   cuts): a client
+   thread requests /api/state, /api/splats and /api/render while run()
+   maps and again after it; every response must be 200, the splat count
+   the arena's alive count, the render PNG equal to ``render_view`` of
+   the same pose within one 8-bit level, and K1 (not K2) must launch
+   inside the render requests (``launches_by_path["viewer"]``);
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -2001,6 +2024,480 @@ def model_families_phase(G, card, frames, K4):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the DROID stack, the shared math and the live viewer
+# ---------------------------------------------------------------------------
+DROID_FRAMES, DROID_STEPS = 7, 12   # DROID-SLAM's training clip, GRU steps
+VIEWER_FRAMES = 8                   # phase 6's first frames
+
+
+def droid_edges(n, span=2):
+    """Every ordered pair with 0 < |i - j| <= span (22 edges for 7)."""
+    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    m = (np.abs(ii - jj) <= span) & (ii != jj)
+    return ii[m], jj[m]
+
+
+def droid_clip(n, h8, w8, f8, seed):
+    """Poses of ``n`` frames (a slow forward drift), 1/8 disparities and
+    intrinsics (numpy, f32)."""
+    import torch
+    from cut3r_slam_tpu_torch.geometry.lie import se3_exp
+    rng = np.random.default_rng(seed)
+    xi = np.zeros((n, 6), np.float32)
+    xi[:, 0] = np.arange(n) * 0.02
+    xi[:, 2] = np.arange(n) * -0.01
+    xi[:, 4] = np.arange(n) * 0.005
+    poses = se3_exp(torch.tensor(xi)).numpy()
+    disps = (0.5 + 0.1 * np.sin(np.arange(w8) / 5.0)[None, None]
+             + 0.02 * rng.standard_normal((n, h8, w8))).astype(np.float32)
+    intr = np.tile([f8, f8, w8 / 2, h8 / 2], (n, 1)).astype(np.float32)
+    return poses, disps, intr
+
+
+def _within(name, got, ref, atol, rtol):
+    """Fails unless |got - ref| <= atol + rtol |ref| everywhere (both on
+    the CPU); returns max |got - ref| / max |ref|."""
+    import torch
+    got = got.detach().float().cpu()
+    ref = ref.detach().float().cpu()
+    bad = ~((got - ref).abs() <= atol + rtol * ref.abs())
+    if bad.any() or not torch.isfinite(got).all():
+        fail(f"phase 12: {name} card vs CPU beyond {atol:g} + {rtol:g} "
+             f"relative ({int(bad.sum())} elements)")
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-12)
+
+
+def droid_card_vs_cpu():
+    """The DROID stack on the card against the CPU at a small shape, all
+    in f32 (``full_f32``), each within the tolerance its CPU test states:
+    projective_transform with Jacobians and corr_lookup 1e-5 + 1e-5
+    relative; bundle_adjust, moba and jdsa 1e-5 + 1e-4 relative; one
+    DroidNet forward (3 frames of 64x64, 4 edges, num_steps 2) 1e-4 +
+    1e-4 relative."""
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.geometry.projective import \
+        projective_transform
+    from cut3r_slam_tpu_torch.models.blocks import init_random
+    from cut3r_slam_tpu_torch.models.droid_net import DroidNet
+    from cut3r_slam_tpu_torch.ops.ba import bundle_adjust, jdsa, moba
+    from cut3r_slam_tpu_torch.ops.corr import build_corr_pyramid, \
+        corr_lookup
+    rng = np.random.default_rng(12)
+    n, h, w = 4, 12, 16
+    poses, disps, intr = droid_clip(n, h, w, 20.0, 12)
+    ii, jj = droid_edges(n, 1)
+    gt = droid_clip(n, h, w, 20.0, 13)[1]
+    errs = {}
+
+    def both(fn, *arrays):
+        cpu = fn(*(torch.tensor(a) for a in arrays))
+        card = fn(*(torch.tensor(a, device="cuda") for a in arrays))
+        return card, cpu
+
+    with full_f32():
+        card, cpu = both(lambda p, d, k, a, b: projective_transform(
+            p, d, k, a, b, jacobian=True), poses, disps, intr, ii, jj)
+        for name, g, r in zip(("coords", "valid", "Ji", "Jj", "Jz"),
+                              card[:2] + card[2], cpu[:2] + cpu[2]):
+            errs[f"projective {name}"] = _within(
+                f"projective_transform {name}", g, r, 1e-5, 1e-5)
+        f1 = rng.normal(size=(2, h, w, 32)).astype(np.float32)
+        f2 = rng.normal(size=(2, h, w, 32)).astype(np.float32)
+        coords = np.stack([rng.uniform(-4, w + 4, (2, h, w)),
+                           rng.uniform(-4, h + 4, (2, h, w))],
+                          -1).astype(np.float32)
+        card, cpu = both(lambda a, b, c: corr_lookup(
+            build_corr_pyramid(a, b), c), f1, f2, coords)
+        errs["corr_lookup"] = _within("corr_lookup", card, cpu, 1e-5, 1e-5)
+        target = both(lambda p, d, k, a, b: projective_transform(
+            p, d, k, a, b)[0], poses, gt, intr, ii, jj)[1].numpy()
+        weight = rng.uniform(0.2, 1.0, target.shape).astype(np.float32)
+        eta = np.full((n, h, w), 1e-2, np.float32)
+        ev = np.ones(len(ii), np.float32)
+        card, cpu = both(lambda *a: bundle_adjust(*a, fixedp=2, steps=2),
+                         target, weight, eta, poses, disps, intr, ii, jj, ev)
+        for name, g, r in zip(("poses", "disps", "dzcov"), card, cpu):
+            errs[f"bundle_adjust {name}"] = _within(
+                f"bundle_adjust {name}", g, r, 1e-5, 1e-4)
+        card, cpu = both(lambda *a: moba(*a, fixedp=1, steps=3), target,
+                         weight, poses, disps, intr, ii, jj, ev)
+        errs["moba poses"] = _within("moba", card, cpu, 1e-5, 1e-4)
+        prior = (gt / 1.25).astype(np.float32)
+        dsc = (1 + 0.1 * rng.normal(size=(n, 3, 4))).astype(np.float32)
+        card, cpu = both(lambda *a: jdsa(*a, alpha=0.05), target, weight,
+                         eta, poses, disps, intr, prior, dsc, ii, jj, ev)
+        for name, g, r in zip(("disps", "dscales", "dzcov"), card, cpu):
+            errs[f"jdsa {name}"] = _within(f"jdsa {name}", g, r, 1e-5, 1e-4)
+
+        net = init_random(DroidNet(device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(1))
+        ref = DroidNet(device="cpu")
+        ref.load_state_dict(net.state_dict())
+        imgs = np.stack(synth_frames(3, 64, 64, seed=3)).astype(np.float32)
+        p3, d3, k3 = droid_clip(3, 8, 8, 9.6, 14)
+        e3 = np.asarray([0, 1, 1, 2]), np.asarray([1, 0, 2, 1])
+        with torch.no_grad():
+            outs = [m(*(torch.tensor(a, device=dev) for a in (
+                p3, imgs, d3, k3, e3[0], e3[1], np.ones(4, np.float32))),
+                num_steps=2, fixedp=1) for m, dev in ((net, "cuda"),
+                                                      (ref, "cpu"))]
+        for name, g, r in zip(("poses", "disps", "residual"), *outs):
+            errs[f"DroidNet {name}"] = _within(f"DroidNet forward {name}",
+                                               g, r, 1e-4, 1e-4)
+    return errs
+
+
+def oracle_ba(h8, w8, f8):
+    """As tests/test_droid_convergence.py, at the phase's clip: targets from
+    the true geometry of 7 frames (22 edges, 1/8 grid), frames 2-6
+    perturbed, 8 x 2 BA steps with frames 0-1 fixed. Returns (error
+    before, after) of the worst pose and the ms of one 2-step call."""
+    import torch
+    from cut3r_slam_tpu_torch.geometry.lie import se3_exp, se3_mul
+    from cut3r_slam_tpu_torch.geometry.projective import \
+        projective_transform
+    from cut3r_slam_tpu_torch.ops.ba import bundle_adjust
+    n = DROID_FRAMES
+    poses, disps, intr = (torch.tensor(a, device="cuda") for a in
+                          droid_clip(n, h8, w8, f8, 21))
+    ii, jj = (torch.tensor(a, device="cuda") for a in droid_edges(n))
+    target, _ = projective_transform(poses, disps, intr, ii, jj)
+    rng = np.random.default_rng(22)
+    bad = torch.tensor(rng.normal(size=(n, 6)) * 0.01, dtype=torch.float32,
+                       device="cuda")
+    bad[:2] = 0
+    cur = se3_mul(se3_exp(bad), poses)
+
+    def err(p):
+        return float((p - poses).norm(dim=-1).max())
+
+    e0 = err(cur)
+    weight = torch.ones_like(target)
+    eta = torch.full((n, h8, w8), 1e-4, device="cuda")
+    ev = torch.ones(len(ii), device="cuda")
+    d = disps.clone()
+    for _ in range(8):
+        cur, d, _ = bundle_adjust(target, weight, eta, cur, d, intr, ii, jj,
+                                  ev, fixedp=2, n_frames=n, steps=2)
+    ms = cuda_ms(lambda: bundle_adjust(target, weight, eta, poses, disps,
+                                       intr, ii, jj, ev, fixedp=2,
+                                       n_frames=n, steps=2), 10)
+    return e0, err(cur), ms
+
+
+def droid_phase(G, card, frames):
+    """(a) DroidNet at its full widths (fnet 128, cnet 256, 128-plane GRU;
+    seeded random weights) on 7 of phase 6's frames at 384x512 (1/8 grid
+    48x64), the 22 edges |i - j| <= 2, fixedp 2, 12 GRU steps x 2 BA
+    iterations: ms of a forward (CUDA events) and its peak memory; one
+    value-and-grad step of mean |residual| at num_steps 2 (finite loss,
+    nonzero gradient); the oracle-target BA (>= 10x); the card-vs-CPU
+    checks. Returns the kernels' launches over the part (none expected:
+    DROID renders nothing)."""
+    import torch
+    from cut3r_slam_tpu_torch.models.blocks import init_random
+    from cut3r_slam_tpu_torch.models.droid_net import DroidNet
+    for k in G.LAUNCHES:
+        G.LAUNCHES[k] = 0
+    H, W = frames[0].shape[:2]
+    h8, w8, f8 = H // 8, W // 8, 400.0 / 8
+    net = init_random(DroidNet(device="cuda"),
+                      torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in net.parameters())
+    poses, disps, intr = droid_clip(DROID_FRAMES, h8, w8, f8, 20)
+    ii, jj = droid_edges(DROID_FRAMES)
+    dev = [torch.tensor(a, device="cuda") for a in (
+        poses, np.stack(frames[:DROID_FRAMES]).astype(np.float32), disps,
+        intr, ii, jj, np.ones(len(ii), np.float32))]
+
+    def forward(steps=DROID_STEPS):
+        return net(*dev, num_steps=steps, fixedp=2)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        p1, d1, r1 = forward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        fwd_ms = cuda_ms(forward, 3)
+    if not all(torch.isfinite(x).all() for x in (p1, d1, r1)):
+        fail("phase 12: DroidNet forward gave non-finite output")
+    moved = float((p1[2:] - dev[0][2:]).norm(dim=-1).max())
+    def grad_step():
+        loss = forward(2)[2].abs().mean()
+        loss.backward()
+        return loss
+
+    net.zero_grad()
+    torch.cuda.reset_peak_memory_stats()
+    loss, step_s = synced_s(grad_step)
+    gpeak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    gsum = sum(float(p.grad.abs().sum()) for p in net.parameters()
+               if p.grad is not None)
+    loss = loss.item()
+    if not (np.isfinite(loss) and gsum > 0):
+        fail(f"phase 12: DroidNet training step: loss {loss}, |grad| sum "
+             f"{gsum}")
+    e0, e1, ba_ms = oracle_ba(h8, w8, f8)
+    if not (np.isfinite(e1) and e1 <= e0 / 10):
+        fail(f"phase 12: oracle-target BA error {e0:.3e} -> {e1:.3e} "
+             "(below 10x)")
+    launches = dict(G.LAUNCHES)
+    errs = droid_card_vs_cpu()
+    log(f"[droid] DroidNet {n_params / 1e6:.2f} M params (random, seed 0), "
+        f"{DROID_FRAMES} frames {H}x{W} (grid {h8}x{w8}), {len(ii)} edges, "
+        f"fixedp 2, {DROID_STEPS} GRU steps x 2 BA iterations: forward "
+        f"{fwd_ms:.1f} ms (CUDA events, mean of 3; convolutions at torch's "
+        f"default cuDNN precision with TF32 allowed, correlation f32, BA "
+        f"under full_f32), peak {peak:.2f} GiB above the inputs; poses "
+        f"moved up to {moved:.3e} | {card}")
+    log(f"[droid] value-and-grad step of mean |residual| at num_steps 2: "
+        f"loss {loss:.4f}, |grad| sum {gsum:.3e}, {1e3 * step_s:.1f} "
+        f"ms, peak {gpeak:.2f} GiB | {card}")
+    log(f"[droid] oracle-target BA (8 x 2 steps, 7 frames, 22 edges, grid "
+        f"{h8}x{w8}): worst pose error {e0:.3e} -> {e1:.3e} "
+        f"({e0 / max(e1, 1e-30):.1f}x); one 2-iteration bundle_adjust "
+        f"{ba_ms:.2f} ms | {card}")
+    log("[droid] card vs CPU (f32), max err / max |cpu|: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    log(f"[droid] launches: {launches}")
+    del net, dev
+    return launches
+
+
+def shared_math_card_vs_cpu(card, frames):
+    """(b) tv_loss, sobel_edges and gaussian_blur on a 384x512 frame and
+    the robust Sim(3) of a 384x512 point-map pair (a tenth of the rows
+    outliers, 20 IRLS iterations: the scale within 0.02 of the truth, as
+    tests/test_shared_math.py), card vs CPU, within the tolerances of
+    tests/test_torch_shared_math.py (1e-6 on the image maps and the loss,
+    1e-5 on the scale, 1e-4 on R and t)."""
+    import torch
+    from cut3r_slam_tpu_torch.geometry.sim3_align import \
+        weighted_align_point_maps
+    from cut3r_slam_tpu_torch.ops.imageproc import (gaussian_blur,
+                                                     sobel_edges, tv_loss)
+    rng = np.random.default_rng(30)
+    img = frames[0].astype(np.float32) / 255.0
+    H, W = img.shape[:2]
+    depth = rng.uniform(0.5, 3.0, (2, H, W)).astype(np.float32)
+    normal = rng.normal(size=(2, H, W, 3)).astype(np.float32)
+    conf = rng.uniform(0, 1, (2, H, W)).astype(np.float32)
+    image = np.stack([img, frames[1].astype(np.float32) / 255.0])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t = {k: torch.tensor(v, device=dev) for k, v in dict(
+            depth=depth, normal=normal, image=image, conf=conf,
+            img=img).items()}
+        res[dev] = dict(
+            tv=tv_loss(t["depth"], t["normal"], t["image"], t["conf"]),
+            sobel=sobel_edges(t["img"]), blur=gaussian_blur(t["img"], 5,
+                                                            1.0))
+    out = {}
+    for k in ("sobel", "blur"):
+        out[k] = _within(k, res["cuda"][k], res["cpu"][k], 1e-6, 0)
+    out["tv loss"] = _within("tv_loss", res["cuda"]["tv"][0],
+                             res["cpu"]["tv"][0], 1e-6, 0)
+    out["tv weights"] = _within("tv weights", res["cuda"]["tv"][1],
+                                res["cpu"]["tv"][1], 1e-6, 0)
+    from scipy.spatial.transform import Rotation
+    R = Rotation.random(random_state=31).as_matrix().astype(np.float32)
+    pm2 = rng.normal(size=(1, H, W, 3)).astype(np.float32)
+    pm1 = (1.3 * pm2.reshape(-1, 3) @ R.T + np.float32([0.2, -0.1, 0.4]))
+    pm1 = pm1.reshape(pm2.shape).astype(np.float32)
+    c = rng.uniform(0, 2, (1, H, W)).astype(np.float32)
+    bad = H // 10                 # a tenth of the rows are outliers
+    pm1[:, :bad] += rng.normal(scale=2.0, size=pm1[:, :bad].shape).astype(
+        np.float32)
+    def align(dev):
+        args = [torch.tensor(a, device=dev) for a in (pm1, c, pm2, c)]
+        return weighted_align_point_maps(*args, 0.5, delta=0.1,
+                                         max_iters=20)
+
+    align("cuda")
+    sim_card, secs = synced_s(lambda: align("cuda"))
+    sim_cpu = align("cpu")
+    for name, i, atol in (("s", 0, 1e-5), ("R", 1, 1e-4), ("t", 2, 1e-4)):
+        out[f"sim3 {name}"] = _within(f"robust Sim(3) {name}", sim_card[i],
+                                      sim_cpu[i], atol, 0)
+    if abs(float(sim_card[0]) - 1.3) > 0.02:
+        fail(f"phase 12: robust Sim(3) scale {float(sim_card[0])}")
+    sim_ms = 1e3 * secs
+    log(f"[shared] card vs CPU at {H}x{W}, max err / max |cpu|: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in out.items())
+        + f"; robust Sim(3) over {H * W} points {sim_ms:.1f} ms | {card}")
+
+
+def _http(port, path):
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as r:
+        body = r.read()
+        return r.status, r.headers.get("Content-Type"), body, \
+            time.perf_counter() - t0
+
+
+def _png(body):
+    import cv2
+    return cv2.imdecode(np.frombuffer(body, np.uint8),
+                        cv2.IMREAD_COLOR)[..., ::-1]
+
+
+def viewer_phase(G, card, frames, K4):
+    """(c) SLAMSystem with ``GUI: {active: true, port: 0}`` over phase 6's
+    first 8 frames, a keyframe each (full-width CUT3R, phase 6's mapping
+    cuts). A client
+    thread requests /api/state, /api/splats and /api/render while run()
+    maps, and again after it. Fails unless every response is 200 (the
+    render once a mapper exists), the splat count equals the arena's
+    alive count, the render PNG equals render_view of the same pose
+    within one 8-bit level and K1 launches inside the render requests.
+    Returns the kernels' launches inside those requests."""
+    import threading
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.slam.renderer import render_view
+    from cut3r_slam_tpu_torch.slam.system import SLAMSystem
+    from cut3r_slam_tpu_torch.utils.config import DEFAULT_CONFIG
+    H, W = frames[0].shape[:2]
+    model = plausible_random_cut3r(seed=0)
+    cfg = json.loads(json.dumps(DEFAULT_CONFIG))
+    # a keyframe per frame: the first mapping event within the 8 frames
+    cfg["Tracking"]["motion_filter"]["kf_every"] = 1
+    cfg["Mapping"].update(SLICE_MAPPING_CUTS)
+    cfg["GUI"] = {"active": True, "port": 0}
+    out_dir = _scratch("chip_smoke_viewer_")
+    slam = SLAMSystem(model, cfg, buffer=64, img_hw=(H, W),
+                      output_dir=out_dir, device="cuda")
+    port = slam.viewer.port
+    eye = ",".join(str(float(v)) for v in np.eye(4).ravel())
+    stop = threading.Event()
+    during = {"state": 0, "splats": 0, "render": 0, "bad": []}
+
+    def client():
+        while not stop.is_set():
+            try:
+                for path in ("/api/state", "/api/splats") + (
+                        (f"/api/render?w2c={eye}",)
+                        if slam.mapper is not None else ()):
+                    status, _, body, _ = _http(port, path)
+                    key = path.split("?")[0].rsplit("/", 1)[-1]
+                    if status != 200 or not body:
+                        during["bad"].append((path, status))
+                    during[key] += 1
+            except Exception as e:
+                during["bad"].append(repr(e))
+                return
+            time.sleep(0.05)
+
+    th = threading.Thread(target=client)
+    th.start()
+    events = 0
+    t0 = time.perf_counter()
+    try:
+        for t, img in enumerate(frames[:VIEWER_FRAMES]):
+            _, viz = slam.run(t, img, K4, img_map=img, K4_map=K4,
+                              last=(t == VIEWER_FRAMES - 1))
+            events += viz is not None
+    finally:
+        stop.set()
+        th.join(timeout=300)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if during["bad"]:
+        fail(f"phase 12: viewer responses during run(): {during['bad'][:5]}")
+    if events < 1 or slam.mapper is None or during["render"] < 1:
+        fail(f"phase 12: no render request during mapping ({events} events, "
+             f"{during})")
+    m = slam.mapper
+    kf = slam.keyframes
+    # after run(): state, splats, then renders of the last keyframe's view
+    status, _, body, _ = _http(port, "/api/state")
+    st = json.loads(body)
+    alive = int(m.arena.alive.sum())
+    if status != 200 or st["n_kf"] != kf.count or st["n_alive"] != alive:
+        fail(f"phase 12: /api/state {status} {st['n_kf']} keyframes, "
+             f"{st['n_alive']} alive (system: {kf.count}, {alive})")
+    sp = [_http(port, "/api/splats") for _ in range(3)]
+    (n_splats,) = np.frombuffer(sp[-1][2][:4], "<u4")
+    if any(s[0] != 200 for s in sp) or n_splats != alive or \
+            len(sp[-1][2]) != 4 + 20 * alive:
+        fail(f"phase 12: /api/splats gave {n_splats} splats, "
+             f"{len(sp[-1][2])} bytes; the arena holds {alive}")
+    c2w = np.eye(4, dtype=np.float32)
+    from scipy.spatial.transform import Rotation
+    pose = kf.pose[kf.count - 1]
+    c2w[:3, :3] = Rotation.from_quat(pose[3:7]).as_matrix()
+    c2w[:3, 3] = pose[:3]
+    w2c = np.linalg.inv(c2w).astype(np.float32)
+    q = ",".join(repr(float(v)) for v in w2c.ravel())
+    _http(port, f"/api/render?w2c={q}")          # warm
+    for k in G.LAUNCHES:
+        G.LAUNCHES[k] = 0
+    rs = [_http(port, f"/api/render?w2c={q}") for _ in range(5)]
+    launches = dict(G.LAUNCHES)
+    if any(r[0] != 200 or r[1] != "image/png" for r in rs):
+        fail(f"phase 12: /api/render answered {[r[:2] for r in rs]}")
+    if launches["gs_blend_fwd"] <= 0 or launches["gs_blend_bwd"] != 0:
+        fail(f"phase 12: launches inside /api/render: {launches}")
+    got = _png(rs[-1][2]).astype(int)
+
+    def reference():
+        with torch.no_grad(), full_f32():
+            arena_b, _ = m._sliced()
+            out = render_view(arena_b.params(), arena_b.alive,
+                              torch.tensor(w2c, device="cuda"), m.K4,
+                              m.raster_cfg)
+            return (torch.clamp(out["color"], 0.0, 1.0).cpu().numpy()
+                    * 255).astype(np.uint8)
+
+    ref_s = [synced_s(reference)[1] for _ in range(3)]
+    ref = reference()
+    from cut3r_slam_tpu_torch.gui.server import _encode_png
+    png_s = [synced_s(lambda: _encode_png(ref))[1] for _ in range(3)]
+    ref = ref.astype(int)
+    diff = int(np.abs(got - ref).max()) if got.shape == ref.shape else -1
+    if not 0 <= diff <= 1 or ref.max() == 0:
+        fail(f"phase 12: the /api/render PNG differs from render_view by "
+             f"{diff} levels (shapes {got.shape} / {ref.shape})")
+    slam.viewer.stop()
+    render_ms = 1e3 * np.mean([r[3] for r in rs])
+    splat_ms = 1e3 * np.mean([s[3] for s in sp])
+    log(f"[viewer] {VIEWER_FRAMES} frames, {kf.count} keyframes, {events} "
+        f"mapping events in {run_s:.1f} s; during run(): {during['state']} "
+        f"state, {during['splats']} splats and {during['render']} render "
+        f"responses, all 200 | {card}")
+    log(f"[viewer] after run(): /api/render {render_ms:.1f} ms at "
+        f"{m.cfg.height}x{m.cfg.width} (mean of 5, HTTP + render + PNG), "
+        f"PNG equal to render_view within {diff} level(s); of which the "
+        f"render to host {1e3 * np.mean(ref_s):.1f} ms, the PNG encode "
+        f"{1e3 * np.mean(png_s):.1f} ms; /api/splats "
+        f"{splat_ms:.1f} ms for {len(sp[-1][2])} bytes ({alive} splats); "
+        f"launches inside the render requests {launches} | {card}")
+    del slam, model, m
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+def droid_viewer_phase(G, card, frames, K4):
+    """Phase 12 (see the module docstring). Returns the kernels' launches
+    of the DROID part and inside the viewer's render requests."""
+    import torch
+    t0 = time.perf_counter()
+    droid = droid_phase(G, card, frames)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shared_math_card_vs_cpu(card, frames)
+    viewer = viewer_phase(G, card, frames, K4)
+    log(f"[phase 12] in {time.perf_counter() - t0:.1f} s")
+    return droid, viewer
+
+
 def kernel_phases(G, card):
     """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
     scene, the staging-edge scene and at the mapping shape (V = 1 and 10,
@@ -2231,6 +2728,15 @@ def main():
     torch.cuda.empty_cache()
     prior_launches = model_families_phase(G, card, frames, K4)
 
+    mark("phase 11")
+    # 12. the DROID stack, the shared math and the live viewer ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    droid_launches, viewer_launches = droid_viewer_phase(G, card, frames,
+                                                          K4)
+
+    mark("phase 12")
+
     kernels = []
     for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
                            ("gs_blend_bwd", ":241 _blend_bwd_kernel")):
@@ -2246,7 +2752,9 @@ def main():
                                      demo_launches[name],
                                  "training": train_launches[name],
                                  "offline_eval": offline_launches[name],
-                                 "mono_prior": prior_launches[name]},
+                                 "mono_prior": prior_launches[name],
+                                 "droid": droid_launches[name],
+                                 "viewer": viewer_launches[name]},
             "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})

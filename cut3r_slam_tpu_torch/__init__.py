@@ -15,6 +15,7 @@ one without a GPU raises unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -37,6 +38,11 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+_F32_LOCK = threading.Lock()
+_F32_DEPTH = 0
+_F32_SAVED = None
+
+
 @contextlib.contextmanager
 def full_f32():
     """Float32 matrix products and convolutions at float32 accuracy inside
@@ -45,16 +51,27 @@ def full_f32():
     float32 backward algorithms left the card's training gradients far
     from a float64 oracle (scripts/f64_oracle_card.py). The mapping path,
     the kernel parity checks and the card-vs-CPU training checks run under
-    it: the TPU kernels run their contractions at Precision.HIGHEST."""
-    mm = torch.backends.cuda.matmul.allow_tf32
-    cd = torch.backends.cudnn.allow_tf32
-    on = torch.backends.cudnn.enabled
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.enabled = False
+    it: the TPU kernels run their contractions at Precision.HIGHEST.
+
+    The settings are process-wide, so the blocks are counted across
+    threads (the live viewer renders from its server thread): the first
+    block to enter saves and sets them, the last to leave restores them."""
+    global _F32_DEPTH, _F32_SAVED
+    with _F32_LOCK:
+        if _F32_DEPTH == 0:
+            _F32_SAVED = (torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32,
+                          torch.backends.cudnn.enabled)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cudnn.enabled = False
+        _F32_DEPTH += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = cd
-        torch.backends.cudnn.enabled = on
+        with _F32_LOCK:
+            _F32_DEPTH -= 1
+            if _F32_DEPTH == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32,
+                 torch.backends.cudnn.enabled) = _F32_SAVED

@@ -12,7 +12,8 @@ Runs on the GPU; ``--cpu`` runs the plain PyTorch path on the CPU. The
 model loads ``--ckpt``; without that file it takes random weights from
 seed 0. ``--tiny-model`` builds the tiny configuration, which loads a
 tiny checkpoint when ``--ckpt`` names one (the JAX driver's tiny model is
-always random). ``--gui`` is not ported.
+always random). ``--gui`` serves the live viewer on ``--gui_port``
+(``GUI.active``; port 0 takes a free one) and prints its URL.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def parse_args(argv=None):
     p.add_argument("--finalize_iters", type=int, default=None,
                    help="override opt_params.position_lr_max_steps")
     p.add_argument("--gui", action="store_true",
-                   help="the live viewer (not ported)")
+                   help="serve the live browser viewer (GUI.active)")
     p.add_argument("--gui_port", type=int, default=8080)
     return p.parse_args(argv)
 
@@ -73,9 +74,6 @@ def build_model(args, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.gui:
-        raise NotImplementedError("the live viewer (--gui) is not ported to "
-                                  "cut3r_slam_tpu_torch yet (see ROADMAP.md)")
     from .slam.system import SLAMSystem
     from .utils.config import DEFAULT_CONFIG, load_calib, load_config
     from .utils.image import _imread, list_images, mono_stream, \
@@ -102,6 +100,8 @@ def main(argv=None):
 
     model = build_model(args, device)
     cfg.setdefault("Mapping", {})["arena_capacity"] = args.arena_capacity
+    if args.gui:
+        cfg["GUI"] = {"active": True, "port": args.gui_port}
     if args.finalize_iters is not None:
         cfg.setdefault("opt_params", {})["position_lr_max_steps"] = \
             args.finalize_iters
@@ -109,6 +109,8 @@ def main(argv=None):
                       map_hw=(Hm, tw), enable_mapping=not args.no_mapping,
                       enable_loop=not args.no_loop, output_dir=args.output,
                       device=device)
+    if slam.viewer is not None:
+        print(f"[demo] live viewer at http://127.0.0.1:{slam.viewer.port}/")
     os.makedirs(args.output, exist_ok=True)
     with open(os.path.join(args.output, "image_shape.txt"), "w") as f:
         f.write(f"track {Ht}x{tw} map {Hm}x{tw} src {h0}x{w0} "

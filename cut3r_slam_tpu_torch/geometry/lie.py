@@ -19,7 +19,8 @@ from .quaternion import (quat_conjugate, quat_multiply, quat_normalize,
 
 __all__ = ["so3_exp", "so3_log", "so3_inv", "so3_mul", "so3_act",
            "so3_matrix", "se3_exp", "se3_log", "se3_inv", "se3_mul",
-           "se3_act", "se3_matrix", "se3_from_matrix", "sim3_identity",
+           "se3_act", "se3_matrix", "se3_from_matrix", "se3_identity",
+           "se3_retr", "sim3_identity",
            "sim3_exp", "sim3_log", "sim3_inv", "sim3_mul", "sim3_act",
            "sim3_matrix", "sim3_from_matrix", "sim3_retr"]
 
@@ -104,6 +105,12 @@ def _apply_V_inv(phi, rho):
     return rho - 0.5 * c1 + k * c2
 
 
+def se3_identity(shape=(), dtype=torch.float32, device="cpu"
+                 ) -> torch.Tensor:
+    base = torch.tensor([0, 0, 0, 0, 0, 0, 1], dtype=dtype, device=device)
+    return base.expand(tuple(shape) + (7,))
+
+
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """se(3) tangent (..., 6) [tau, phi] -> SE3 7-vector."""
     tau, phi = xi[..., :3], xi[..., 3:6]
@@ -149,6 +156,11 @@ def se3_matrix(g: torch.Tensor) -> torch.Tensor:
 
 def se3_from_matrix(m: torch.Tensor) -> torch.Tensor:
     return torch.cat([m[..., :3, 3], matrix_to_quat(m[..., :3, :3])], -1)
+
+
+def se3_retr(g: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """lietorch-style retraction: exp(xi) * g."""
+    return se3_mul(se3_exp(xi), g)
 
 
 # ---------------------------------------------------------------------------

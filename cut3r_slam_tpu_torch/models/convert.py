@@ -2,7 +2,8 @@
 checkpoints (CUT3R ``load_cut3r_checkpoint``, Spann3R
 ``load_spann3r_checkpoint``; Omnidata's loader is
 ``models/omnidata.load_omnidata_ckpt``) or from the JAX models' flax
-params (``params_from_jax``, ``omnidata_params_from_jax``).
+params (``params_from_jax``, ``omnidata_params_from_jax``,
+``droid_params_from_jax``).
 
 ``load_cut3r_checkpoint(path)`` follows the JAX converter's rules
 (``cut3r_slam_tpu/models/convert.py``): unwrap ``ckpt["model"]``, strip
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "omnidata_params_from_jax",
+           "droid_params_from_jax",
            "load_torch_checkpoint", "load_cut3r_checkpoint",
            "load_spann3r_checkpoint", "CKPT_SKIP", "SPANN3R_SKIP"]
 
@@ -182,6 +184,33 @@ def omnidata_params_from_jax(flat: Dict[str, np.ndarray]
             continue
         leaf, val = _leaf(leaf, np.asarray(w, np.float32))
         sd[f"{name}.{leaf}"] = torch.tensor(np.ascontiguousarray(val))
+    return sd
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if hasattr(v, "items"):
+            yield from _flatten(v, path)
+        else:
+            yield path, v
+
+
+def droid_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """``DroidNet``'s flax params -> the port's state_dict. ``params`` is
+    the flax tree (``model.init``'s, with or without its ``params`` level)
+    or its ``/``-joined flattening. The port's module names are the flax
+    names (``fnet.layer2_0.downsample``, ``update.gru.convz_glo``, ...);
+    conv kernels HWIO -> OIHW. No DROID torch checkpoint is loaded: the
+    JAX package has no loader for one."""
+    if hasattr(params, "items") and "params" in params:
+        params = params["params"]
+    sd = {}
+    for path, w in _flatten(params):
+        head, leaf = path.rsplit("/", 1)
+        leaf, val = _leaf(leaf, np.asarray(w, np.float32))
+        sd[head.replace("/", ".") + "." + leaf] = torch.tensor(
+            np.ascontiguousarray(val))
     return sd
 
 

@@ -19,13 +19,18 @@ computes a monocular depth and normal prior per keyframe (``PriorNet``,
 from random weights or a ``prior_ckpt`` npz of the JAX package's flax
 params, or Omnidata DPT-hybrid from ``omnidata_ckpt_{depth,normal}``),
 stored in the keyframe store; no mapping loss reads it, as in the JAX
-package. The configuration ported is one device and no GUI; asking for
-the GUI or for view-parallel mapping raises NotImplementedError.
+package. ``GUI: {active: true, port: N, max_splats: M}`` serves the live
+viewer (``gui/server.py``) from a daemon thread; the loop holds
+``state_lock`` around every stage and mapping slice that writes keyframe
+or map state, and the viewer reads and renders under it (the arena is
+updated in place). The configuration ported is one device; asking for
+view-parallel mapping raises NotImplementedError.
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -54,6 +59,27 @@ from .sim3_pgo import PGBABuffer
 __all__ = ["SLAMSystem"]
 
 
+def _locked_slices(gen, lock):
+    """The mapping event ``gen`` with each of its slices run under
+    ``lock``; returns the event's value."""
+    while True:
+        with lock:
+            try:
+                v = next(gen)
+            except StopIteration as e:
+                return e.value
+        yield v
+
+
+def _drain(gen):
+    """Run a generator to its end; returns its value."""
+    while True:
+        try:
+            next(gen)
+        except StopIteration as e:
+            return e.value
+
+
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to cut3r_slam_tpu_torch "
                               "yet (see ROADMAP.md)")
@@ -72,8 +98,6 @@ class SLAMSystem:
         mcfg = cfg.get("Mapping", {})
         trcfg = cfg.get("Training", {})
         mf_cfg = tcfg.get("motion_filter", {})
-        if bool(cfg.get("GUI", {}).get("active", False)):
-            _not_ported("the live viewer (GUI.active)")
         if int(mcfg.get("view_parallel", 0)) > 1:
             _not_ported("view-parallel mapping (Mapping.view_parallel)")
 
@@ -144,6 +168,16 @@ class SLAMSystem:
         self.keep_all_frames = bool(cfg.get("keep_all_frames", True))
         self.images = CompressedFrameStore()
         self.last_t = -1
+        # held around every stage that writes keyframe or map state; the
+        # viewer snapshots and renders under it
+        self.state_lock = threading.RLock()
+        self.viewer = None
+        gui_cfg = cfg.get("GUI", {})
+        if bool(gui_cfg.get("active", False)):
+            from ..gui import ViewerServer
+            self.viewer = ViewerServer(
+                self, port=int(gui_cfg.get("port", 8080)),
+                max_splats=int(gui_cfg.get("max_splats", 400_000)))
 
     def _init_mapper(self, K4_map):
         mh, mw = self.map_hw
@@ -158,7 +192,11 @@ class SLAMSystem:
     def reset_state(self):
         """Empty every store (keyframes, factor graph, loop backend, PGBA,
         mapper, frame store, any interleaved backlog) for a new sequence;
-        the model, the configuration and the timer stay."""
+        the model, the configuration, the timer and the viewer stay."""
+        with self.state_lock:
+            self._reset_state()
+
+    def _reset_state(self):
         old = self.keyframes
         kf = KeyframeStore(old.capacity, old.img_hw, int(old.featI.shape[1]),
                            int(old.featI.shape[2]), map_hw=old.map_hw,
@@ -197,7 +235,7 @@ class SLAMSystem:
         self.frame_map_slices = 0
         if self.keep_all_frames:
             self.images[t] = img_map if img_map is not None else img
-        with self._tm("filter"):
+        with self._tm("filter"), self.state_lock:
             took = self.filter(t, img, intrinsic=K4, second_last=second_last,
                                last=last, image_map=img_map,
                                intrinsic_map=K4_map)
@@ -226,38 +264,42 @@ class SLAMSystem:
         if self.keep_all_frames:
             self.images[t] = img_map if img_map is not None else img
         pose_vec = se3_from_matrix(torch.as_tensor(c2w_gt)).numpy()
-        took = self.filter(t, img, intrinsic=K4, pose=pose_vec,
-                           depth=depth_gt, second_last=second_last,
-                           last=last, image_map=img_map,
-                           intrinsic_map=K4_map)
+        with self.state_lock:
+            took = self.filter(t, img, intrinsic=K4, pose=pose_vec,
+                               depth=depth_gt, second_last=second_last,
+                               last=last, image_map=img_map,
+                               intrinsic_map=K4_map)
         return took, self._track_and_map(t, last)
 
     def _track_and_map(self, t: int, last: bool):
         """Frontend tracking, the loop branch and mapping of one frame;
         returns the new keyframe range or None."""
-        with self._tm("frontend"):
-            run_backend, viz_range, submap_idx = self.frontend.run(t, last)
-        if run_backend and self.enable_loop:
-            with self._tm("loop_backend"):
-                updates = self.backend.run(self.frontend.t1)
-            if updates is not None and self.mapper is not None:
-                self.mapper.gaussian_update(
-                    updates["submap_idx"], updates["pose_updates"],
-                    list(updates["camera_idx"]),
-                    np.linalg.inv(pose_vec_to_matrix_np(
-                        updates["camera_pose"])))
-            if updates is not None and self.pgba is not None:
-                # loop edge from the LC-corrected poses, then a global
-                # Sim(3) pass over all keyframes
-                kf = self.keyframes
-                self.pgba.on_new_keyframes(kf, kf.count)
-                self.pgba.on_loop(self.backend.closed_loop["idx_matched"][-1],
-                                  self.backend.closed_loop["idx_current"][-1],
-                                  kf)
-                self.pgba.solve_and_writeback(kf)
-        if viz_range is not None and self.pgba is not None:
-            # odometry constraints for the new keyframes
-            self.pgba.on_new_keyframes(self.keyframes, self.keyframes.count)
+        with self.state_lock:       # tracking and the loop branch
+            with self._tm("frontend"):
+                run_backend, viz_range, submap_idx = self.frontend.run(t,
+                                                                       last)
+            if run_backend and self.enable_loop:
+                with self._tm("loop_backend"):
+                    updates = self.backend.run(self.frontend.t1)
+                if updates is not None and self.mapper is not None:
+                    self.mapper.gaussian_update(
+                        updates["submap_idx"], updates["pose_updates"],
+                        list(updates["camera_idx"]),
+                        np.linalg.inv(pose_vec_to_matrix_np(
+                            updates["camera_pose"])))
+                if updates is not None and self.pgba is not None:
+                    # loop edge from the LC-corrected poses, then a global
+                    # Sim(3) pass over all keyframes
+                    kf = self.keyframes
+                    self.pgba.on_new_keyframes(kf, kf.count)
+                    self.pgba.on_loop(
+                        self.backend.closed_loop["idx_matched"][-1],
+                        self.backend.closed_loop["idx_current"][-1], kf)
+                    self.pgba.solve_and_writeback(kf)
+            if viz_range is not None and self.pgba is not None:
+                # odometry constraints for the new keyframes
+                self.pgba.on_new_keyframes(self.keyframes,
+                                           self.keyframes.count)
         if viz_range is not None and self.enable_mapping:
             with self._tm("mapping"):
                 self.call_mapper(viz_range, submap_idx)
@@ -293,12 +335,15 @@ class SLAMSystem:
         packet = {"viz_idx": idxs, "images": imgs, "depths": depths,
                   "pointmaps": pts, "confs": confs, "w2c": w2cs,
                   "submap_idx": submap_idx or 0, "tstamp": kf.tstamp[idxs]}
+        event = _locked_slices(
+            self.mapper.run_steps(packet, self.mapping_iters),
+            self.state_lock)
         if self.map_interleave > 0:
             self.drain_mapper()
-            self._map_gen = self.mapper.run_steps(packet, self.mapping_iters)
+            self._map_gen = event
             self.step_mapper(self.map_interleave)
         else:
-            upd = self.mapper.run(packet, self.mapping_iters)
+            upd = _drain(event)
             self.frame_map_slices += 1
             self._apply_map_update(upd)
 
@@ -308,13 +353,14 @@ class SLAMSystem:
             return
         from scipy.spatial.transform import Rotation
         kf = self.keyframes
-        for d, c2w, k in zip(upd["depths"], upd["c2w"], upd["window"]):
-            q = Rotation.from_matrix(
-                np.asarray(c2w[:3, :3], np.float64)).as_quat()
-            kf.pose[k] = np.concatenate([np.asarray(c2w[:3, 3]), q]).astype(
-                np.float32)
-            th, tw = kf.img_hw
-            kf.depth[k] = _resize_f(d, tw, th)
+        th, tw = kf.img_hw
+        with self.state_lock:
+            for d, c2w, k in zip(upd["depths"], upd["c2w"], upd["window"]):
+                q = Rotation.from_matrix(
+                    np.asarray(c2w[:3, :3], np.float64)).as_quat()
+                kf.pose[k] = np.concatenate(
+                    [np.asarray(c2w[:3, 3]), q]).astype(np.float32)
+                kf.depth[k] = _resize_f(d, tw, th)
 
     def step_mapper(self, n_slices: int):
         """Advance the pending interleaved mapping event by at most
@@ -405,8 +451,13 @@ class SLAMSystem:
         """Drain, flush the last keyframes, then (with a mapper) the
         optional densification, the final global BA, the optional
         trajectory fill (``traj_full.txt``), the rendering eval, the
-        render export, the checkpoint and the Gaussian PLY."""
+        render export, the checkpoint and the Gaussian PLY; all but the
+        drain under ``state_lock``."""
         self.drain_mapper()
+        with self.state_lock:
+            return self._finish(t, eval_render, export_renders, add_kf, fill)
+
+    def _finish(self, t, eval_render, export_renders, add_kf, fill) -> Dict:
         self.frontend.run(t, last_frame=True)
         result = {}
         if self.mapper is None:

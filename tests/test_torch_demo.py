@@ -100,11 +100,6 @@ def test_demo_schedule_and_timing(run):
         assert np.isfinite(getattr(m.arena, k)[live].numpy()).all(), k
 
 
-def test_demo_refuses_the_viewer(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        demo.main(["--imagedir", str(tmp_path), "--calib", "x", "--gui"])
-
-
 def test_stage_timer_and_trace_match_jax(tmp_path):
     """``StageTimer``'s summary has the JAX package's JSON layout, and
     ``trace`` writes a ``torch.profiler`` trace of its block."""

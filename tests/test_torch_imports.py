@@ -57,6 +57,10 @@ def test_every_module_imports_without_building():
         "models.priors", "models.omnidata", "models.croco_pretrain",
         "models.dust3r_pair", "models.spann3r", "datasets.pairs",
         "train.stereoflow")} <= set(names)
+    # the DROID stack, the shared math and the viewer
+    assert {f"cut3r_slam_tpu_torch.{m}" for m in (
+        "geometry.projective", "geometry.sim3_align", "ops.corr", "ops.ba",
+        "ops.imageproc", "models.droid_net", "gui.server")} <= set(names)
     assert build._LOADED == {}
 
 
@@ -73,6 +77,9 @@ def test_entry_points_refuse_missing_gpu():
     from cut3r_slam_tpu_torch.utils.tsdf import TSDFVolume
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TSDFVolume()
+    from cut3r_slam_tpu_torch.models.droid_net import DroidNet
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DroidNet()
 
 
 @pytest.mark.parametrize("caller", [True, False])
@@ -88,3 +95,39 @@ def test_full_f32_turns_cudnn_off_inside_only(caller):
         assert torch.backends.cudnn.enabled is caller
     finally:
         torch.backends.cudnn.enabled = before
+
+
+def test_full_f32_blocks_overlapping_across_threads():
+    """Blocks in two threads that overlap without nesting (the viewer's
+    render beside the loop): the settings stay off until the last block
+    leaves, then the caller's come back, whatever the order of exits."""
+    import threading
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    before = [f.allow_tf32 for f in flags] + [torch.backends.cudnn.enabled]
+    entered, release = threading.Event(), threading.Event()
+
+    def other():
+        with cut3r_slam_tpu_torch.full_f32():
+            entered.set()
+            release.wait(10)
+
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        torch.backends.cudnn.enabled = True
+        th = threading.Thread(target=other)
+        with cut3r_slam_tpu_torch.full_f32():
+            th.start()
+            assert entered.wait(10)
+        # this thread left first: the other block still runs in f32
+        assert [f.allow_tf32 for f in flags] == [False, False]
+        assert torch.backends.cudnn.enabled is False
+        release.set()
+        th.join(10)
+        assert [f.allow_tf32 for f in flags] == [True, True]
+        assert torch.backends.cudnn.enabled is True
+    finally:
+        release.set()
+        for f, b in zip(flags, before):
+            f.allow_tf32 = b
+        torch.backends.cudnn.enabled = before[2]

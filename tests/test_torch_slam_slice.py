@@ -131,13 +131,13 @@ def test_terminate_outputs(runs):
 
 
 @pytest.mark.parametrize("cfg, kwargs", [
-    ({"GUI": {"active": True}}, {}),
     ({"Mapping": {"view_parallel": 2}}, {}),
-], ids=["gui", "view_parallel"])
+], ids=["view_parallel"])
 def test_unported_settings_raise(cfg, kwargs, tmp_path):
     """Every branch of the JAX SLAMSystem that the port does not have yet
     is refused when asked for, not silently skipped (the mono prior is
-    ported: tests/test_torch_prior.py)."""
+    ported: tests/test_torch_prior.py; the viewer:
+    tests/test_torch_gui.py)."""
     model = CUT3R(CUT3RConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         SLAMSystem(model, cfg, buffer=4, img_hw=(H, W),
