@@ -149,6 +149,35 @@ Phases (any failure exits nonzero, and no result line is printed):
    the arena's alive count, the render PNG equal to ``render_view`` of
    the same pose within one 8-bit level, and K1 (not K2) must launch
    inside the render requests (``launches_by_path["viewer"]``);
+13. ``parallel/`` over ``torch.distributed``: two ranks spawned on the one
+   card over gloo (NCCL refuses two ranks on one card), each loading the
+   full-width random CUT3R from a checkpoint the phase saves once; a
+   failed rank or check fails the run. (a) from phase 6's mapper state
+   (384x512, arena 2^17, window 10): 10 window iterations with pose, one
+   global-BA segment of three 4-view steps and ``pose_refine_multi`` over
+   5 views, each with its views split over the ranks, against the
+   one-rank run on the card at the JAX suite's tolerances (loss rtol 2e-4
+   / atol 2e-5, w2c rtol 1e-4 / atol 1e-5, arena rtol 2e-3 / atol 2e-5 on
+   all but 1e-4 of each parameter's elements, those within two Adam
+   steps, as phase 9 holds parameters), the ranks' arenas bitwise equal;
+   K1 / K2 launches and ms an iteration per rank and one-rank are
+   printed; (b) ``SLAMSystem.run`` with ``view_parallel: 2`` over phase
+   6's first 8 frames, a keyframe each, at the mapping counts of
+   tests/test_torch_parallel_slam.py, then ``terminate``: the one-rank
+   run's keyframes and mapping events on both ranks, bitwise-equal
+   keyframe poses and arenas, poses within VP_POSE_BOUND of the one-rank
+   run, K1 and K2 launched inside ``run`` on every rank (rank 0's:
+   ``launches_by_path["view_parallel"]``); (c) one ``train`` step of the
+   tiny CUT3R (linear head) at dp 2 and at fsdp 2, card against CPU (f32;
+   losses, Adam first moments and parameters as phase 9 holds them), then
+   one full-width ``make_train_step`` at V=4, 224x224, under fsdp 2 (a
+   finite loss; seconds and peak memory printed; both ranks' activations
+   share the card); (d) the batch-sharded (B=2 over dp 2) and
+   tensor-parallel (tp 2) full-width f32 forwards against the single
+   forward, each output's max |err| within 5e-4 of its max (phase 11(b)'s
+   bound for a full-width f32 network); (e) NCCL at world size 1: one
+   all_reduce of a mapping-gradient buffer through the view-parallel
+   reducer;
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -1133,7 +1162,7 @@ def training_batches(dirs, hw, num_views, seed):
     return make_batch_iter(ds, batch_size=1, seed=seed)
 
 
-def params_agree(ref, got, lrs):
+def params_agree(ref, got, lrs, what="phase 9"):
     """Every parameter element within 1e-5 absolute of ``ref`` but for at
     most 1e-4 of the model's elements, and those within two full Adam
     steps (2 * the summed learning rates): Adam divides each gradient
@@ -1145,7 +1174,7 @@ def params_agree(ref, got, lrs):
     n = sum(d.numel() for d in diff)
     worst = max(float(d.max()) for d in diff)
     if far > 1e-4 * n or worst > 2 * sum(lrs) + 1e-6:
-        fail(f"phase 9: card vs cpu parameters: {far} of {n} elements "
+        fail(f"{what}: card vs cpu parameters: {far} of {n} elements "
              f"beyond 1e-5, max {worst:.3e}")
     return worst, far, n
 
@@ -1167,12 +1196,12 @@ def grads_agree(ref, got, what):
         rn, g = float(r.norm()), got[k]
         if rn <= floor * top:
             if float(g.norm()) > floor * top:
-                fail(f"phase 9: {what}: {k} has a gradient on one side "
+                fail(f"{what}: {k} has a gradient on one side "
                      f"only ({rn:.3e} vs {float(g.norm()):.3e})")
             continue
         rel = float((g - r).norm()) / (rn + floor * top)
         if not rel <= rtol:
-            fail(f"phase 9: {what}: gradient of {k} differs by {rel:.3e} "
+            fail(f"{what}: gradient of {k} differs by {rel:.3e} "
                  f"of its norm + the floor")
         worst = max(worst, rel)
     return worst
@@ -1250,7 +1279,8 @@ def training_card_vs_cpu(root):
     if not rel <= 1e-5:
         fail(f"phase 9: tiny losses, card {lg + [tg]} vs cpu {lc + [tc]}")
     grads = [grads_agree(a, b, what) for a, b, what in zip(
-        mc, mg, ("step 1", "step 2", "TBPTT step"))]
+        mc, mg, ("phase 9: step 1", "phase 9: step 2",
+                 "phase 9: TBPTT step"))]
     worst3 = params_agree(pc, pg, [lr_at(i, kw["lr"], 2, 10)
                                    for i in range(3)])
     worst_t = params_agree(qc, qg, [kw["lr"]])
@@ -2498,6 +2528,579 @@ def droid_viewer_phase(G, card, frames, K4):
     return droid, viewer
 
 
+# ---------------------------------------------------------------------------
+# phase 13: view-parallel mapping, data-parallel / FSDP training and sharded
+# inference over torch.distributed, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+VP_WORLD = 2
+VP_TIMEOUT_S = 60.0          # a collective waiting longer raises
+VP_FRAMES = 8                # (b): phase 6's first frames
+VP_WINDOW_ITERS = 10         # (a): window iterations with pose
+VP_GBA_K = 4                 # (a): views a global-BA step, one segment
+# of 3 steps, as the JAX suite's parallel global-BA case (k 4, segment 3):
+# over phase 6's 50-step segment the one-rank run's own Adam steps drift
+# with the order of the sum (280 of 393,216 f_dc elements beyond the
+# JAX tolerance, 0.85 lr at most, against two ranks on an H100 80GB HBM3)
+VP_GBA_SEGMENT = 3
+VP_REFINE_VIEWS = 5          # (a): views of one batched refinement
+# (a) against the sequential run: the JAX suite's tolerances
+# (tests/test_parallel_mapping.py:84-97)
+VP_LOSS_TOL = dict(rtol=2e-4, atol=2e-5)
+VP_ARENA_TOL = dict(rtol=2e-3, atol=2e-5)
+VP_W2C_TOL = dict(rtol=1e-4, atol=1e-5)
+# (b) runs the mapping counts of tests/test_torch_parallel_slam.py (CFG,
+# MAP_EXTRA): at phase 6's counts the one-rank run's own keyframe poses
+# move by ~5e-3 when only its float summation order changes
+# (scripts/slam_order_sensitivity.py), so no bound could tell a fault
+# from rounding there
+VP_SLAM_MAPPING = {"iterations": 4, "window_opt_iters": 2,
+                   "new_view_opt_iters": 2, "gba_per_view": 0,
+                   "gba_views_per_iter": 2}
+VP_SLAM_MAP_EXTRA = {"pose_refine_iters": 2, "opt_segment": 2,
+                     "gba_segment": 4}
+VP_SLAM_FINALIZE = 2
+# largest keyframe-pose entry difference of (b) from the one-rank run: two
+# Adam steps of a pose's translation (2 x 10 x pose_lr = 6e-3). The one-rank
+# run on the card repeats itself bitwise, but the split over ranks
+# reorders float sums, and at 384x512 some pose-gradient entries lie at
+# the rounding floor: Adam's first step moves such an entry by a full
+# learning rate of either sign (two ranks moved translations by up to
+# 3.8e-3 and rotations by up to 5.2e-4 at these counts on an H100 80GB
+# HBM3; the CPU test at 32x48 measures 9.7e-8 and holds 1e-5)
+VP_POSE_BOUND = 2 * 10 * 0.0003
+# (d): the f32 forwards against the single forward, max |err| / max |ref|
+# per output within phase 11(b)'s bound for a full-width f32 network summed
+# in another order (Omnidata through 16 bottlenecks and 12 ViT blocks:
+# 5e-4); element by element the JAX suite's tiny-model tolerance (rtol
+# 2e-3, atol 2e-4) missed on 2 of 2.36 M pointmap coordinates near zero
+# (2.6e-4 absolute), where a coordinate carries its point's error
+VP_FWD_REL = 5e-4
+# FSDP2's collectives (all_gather_into_tensor, reduce_scatter_tensor) and
+# the DTensor ones of tensor parallelism run over gloo on CUDA tensors on
+# the H100's torch 2.11 (scripts/probe_gloo_cuda.py), so (c) and (d) run
+# at world size 2 over gloo like (a) and (b); NCCL, which refuses two
+# ranks on one card, runs at world size 1 in (e)
+VP_BACKEND = "gloo"
+# (c)'s full-width step: both ranks hold the unsharded model, its gradients
+# and their activations on the one card (at phase 9's 384x512 the two
+# ranks together ran out of its 80 GB), so the step runs at CUT3R's 224
+# training resolution
+VP_TRAIN_HW = (224, 224)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _vp_sync(dev):
+    import torch
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _vp_snapshot(be):
+    import copy
+    return copy.deepcopy((be.arena, be.cams, be.adam, be.current_window,
+                          be.initialized))
+
+
+def _vp_restore(be, snap):
+    import copy
+    import torch
+    (be.arena, be.cams, be.adam, be.current_window,
+     be.initialized) = copy.deepcopy(snap)
+    be.gen = torch.Generator().manual_seed(be.rng_seed)
+
+
+def _vp_mapping(G, spec, mesh):
+    """(a) on one backend loaded from phase 6's state (``mesh`` None: the
+    sequential path): the window optimization, one global-BA segment and
+    one batched refinement, each from the loaded state. Returns per run
+    the loss, arena, camera rows, K1 / K2 launches and ms an iteration."""
+    import torch
+    from cut3r_slam_tpu_torch.slam.mapping import MappingBackend, \
+        MappingConfig
+    dev = spec["device"]
+    be = MappingBackend(MappingConfig(**spec["map_cfg"]), spec["K4_map"],
+                        device=dev, mesh=mesh)
+    be.load(spec["mapper"])
+    snap = _vp_snapshot(be)
+    window, refine = spec["window"], spec["refine"]
+    runs = {
+        "window": (VP_WINDOW_ITERS,
+                   lambda: be.optimization(VP_WINDOW_ITERS, window)),
+        "gba": (be.cfg.gba_segment, lambda: be.global_ba(
+            VP_GBA_K * be.cfg.gba_segment, densify=False)),
+        "refine": (be.cfg.pose_refine_iters,
+                   lambda: be.pose_refine_multi(refine))}
+    out = {}
+    for name, (iters, fn) in runs.items():
+        _vp_restore(be, snap)
+        for k in G.LAUNCHES:
+            G.LAUNCHES[k] = 0
+        _vp_sync(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        _vp_sync(dev)
+        ms = 1e3 * (time.perf_counter() - t0) / iters
+        views = window if name == "window" else (
+            refine if name == "refine" else
+            [i for i in range(be.cfg.cam_capacity) if bool(be.cams.valid[i])])
+        res = {"ms_per_iter": ms, "launches": dict(G.LAUNCHES),
+               "w2c": be.cams.w2c[views].cpu(),
+               "arena": {k: v.detach().cpu().clone()
+                         for k, v in be.arena.params().items()}}
+        if name == "window":
+            res["loss"] = float(r)
+        if name == "refine":
+            res["pm"], res["val"] = r[0].cpu(), r[1].cpu()
+        out[name] = res
+    return out
+
+
+def _vp_slam(G, spec, view_parallel):
+    """(b) ``SLAMSystem.run`` over phase 6's first frames with phase 6's
+    mapping cuts, then ``terminate``; ``view_parallel`` 0 is the one-rank
+    run. Returns the decisions, the keyframe poses, the arena, K1 / K2
+    launches over ``run`` and frames/s."""
+    import torch
+    from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
+    from cut3r_slam_tpu_torch.slam.system import SLAMSystem
+    dev = spec["device"]
+    model = CUT3R(spec.get("cut3r", CUT3RConfig()), device=dev)
+    model.load_state_dict(torch.load(spec["model"], map_location=dev))
+    cfg = json.loads(json.dumps(spec["slam_cfg"]))
+    cfg["Mapping"].update(VP_SLAM_MAPPING, view_parallel=view_parallel)
+    cfg["opt_params"] = {"position_lr_max_steps": VP_SLAM_FINALIZE}
+    # a keyframe each (as phase 12(c)): the first mapping event falls
+    # inside the first 8 frames
+    cfg["Tracking"]["motion_filter"]["kf_every"] = 1
+    H, W = spec["hw"]
+    slam = SLAMSystem(model.eval(), cfg, buffer=64, img_hw=(H, W),
+                      output_dir=os.path.join(spec["out"],
+                                              f"slam_vp{view_parallel}"),
+                      device=dev)
+    slam._map_cfg_extra.update(VP_SLAM_MAP_EXTRA)
+    frames = synth_frames(24, H, W)[:spec["frames"]]
+    K4 = np.asarray(spec["K4"], np.float32)
+    for k in G.LAUNCHES:
+        G.LAUNCHES[k] = 0
+    _vp_sync(dev)
+    t0 = time.perf_counter()
+    events = []
+    for t, img in enumerate(frames):
+        _, viz = slam.run(t, img, K4, img_map=img, K4_map=K4,
+                          last=(t == len(frames) - 1))
+        if viz is not None:
+            events.append(list(viz))
+    _vp_sync(dev)
+    run_s = time.perf_counter() - t0
+    launches = dict(G.LAUNCHES)
+    slam.terminate(len(frames) - 1)
+    kf, m = slam.keyframes, slam.mapper
+    return {"events": events, "tstamp": kf.tstamp[:kf.count].copy(),
+            "pose": kf.pose[:kf.count].copy(),
+            "arena": {k: v.detach().cpu().clone()
+                      for k, v in m.arena.params().items()},
+            "alive": m.arena.alive.cpu().clone(), "launches": launches,
+            "fps": len(frames) / run_s}
+
+
+def _vp_tiny_batch(root):
+    """One global batch of B=2, V=2 at 32x48 whose two samples have
+    different valid counts (the second loses 8 rows)."""
+    from cut3r_slam_tpu_torch.datasets import (
+        MultiViewDataset, SceneFolderSource, SceneLayout, make_batch_iter,
+        generate_multiview_scenes)
+    generate_multiview_scenes(root, n_scenes=1, views_per_scene=8,
+                              hw=(32, 48), seed=0)
+    b = next(make_batch_iter(MultiViewDataset(
+        SceneFolderSource(root, SceneLayout("synth")), num_views=2, span=6,
+        resolution=(32, 48), seed=0), 2, 0))
+    b["valid_mask"][:, 1, :8] = False
+    return b
+
+
+def _vp_train(spec, rank):
+    """(c) one ``train`` step at dp 2 and at fsdp 2 of the tiny CUT3R with
+    the linear head, on the CPU and on the card (f32, no TF32), then one
+    full-width ``make_train_step`` at V=4 under fsdp 2 on the card.
+    Returns the tiny runs' logs and checkpoints and the full step's
+    seconds, setup seconds, loss and peak memory."""
+    import dataclasses
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
+    from cut3r_slam_tpu_torch.train.train_step import (
+        init_trainable, make_optimizer, make_train_step)
+    from cut3r_slam_tpu_torch.train.trainer import (TrainerConfig,
+                                                    distribute, train)
+    root = os.path.join(spec["out"], "train")
+    batch = _vp_tiny_batch(os.path.join(root, f"scenes{rank}"))
+    tiny = dataclasses.replace(CUT3RConfig.tiny(), head_type="linear")
+    init = CUT3R(tiny, device="cpu")
+    init.init_random(torch.Generator().manual_seed(1))
+    out = {"tiny": {}, "names": [n for n, _ in init.named_parameters()]}
+    init = {k: v.clone() for k, v in init.state_dict().items()}
+    for dev in ("cpu", spec["device"]):
+        for name, fsdp in (("dp2", 1), ("fsdp2", 2)):
+            logs = []
+            ckpt = os.path.join(root, f"{dev}_{name}")
+            t0 = time.perf_counter()
+            with full_f32():
+                train(CUT3R(tiny, device=dev), iter([batch]), TrainerConfig(
+                    lr=1e-4, weight_decay=0.05, warmup_steps=0,
+                    total_steps=1, log_every=1, ckpt_dir=ckpt, fsdp=fsdp),
+                    init_params=init, log_fn=logs.append, device=dev)
+            out["tiny"][(dev, name)] = (logs, os.path.join(ckpt,
+                                                           "step_1.pt"))
+            out.setdefault("tiny_seconds", {})[(dev, name)] = \
+                time.perf_counter() - t0
+    if spec["device"] != "cuda":
+        return out
+    # one full-width step at V=4, the parameters sharded over fsdp 2 (the
+    # package's training init from seed 0)
+    dirs = training_scenes(os.path.join(root, f"full{rank}"), VP_TRAIN_HW,
+                           1, seed=0)
+    b4 = next(training_batches(dirs, VP_TRAIN_HW, 4, seed=0))
+    t0 = time.perf_counter()
+    model = CUT3R(CUT3RConfig(), device="cuda")
+    init_trainable(model, torch.Generator(device="cuda").manual_seed(0))
+    distribute(model, 2, "cuda")
+    t_setup = time.perf_counter() - t0
+    opt = make_optimizer(model.parameters(), lr=1e-4, weight_decay=0.05,
+                         warmup_steps=0, total_steps=10)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(step(b4)["total"])
+    torch.cuda.synchronize()
+    out["full"] = {"seconds": time.perf_counter() - t0, "loss": loss,
+                   "setup": t_setup,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vp_infer(spec, rank):
+    """(d) the batch-sharded (B=2 over dp 2) and tensor-parallel (tp 2)
+    forwards of the full-width CUT3R, in f32, against its single forward
+    on the same images (held to VP_FWD_REL). Returns (max |err| / max
+    |ref| per kind and output, seconds of each sharded forward, its setup
+    included)."""
+    import dataclasses
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
+    from cut3r_slam_tpu_torch.parallel import make_mesh
+    from cut3r_slam_tpu_torch.parallel.inference import (
+        make_sharded_forward, make_tp_sharded_forward)
+    dev = spec["device"]
+    H, W = spec["hw"]
+    imgs = (torch.rand(2, 2, H, W, 3, generator=torch.Generator()
+                       .manual_seed(7)) * 2 - 1).to(dev)
+    cfg = dataclasses.replace(spec.get("cut3r", CUT3RConfig()),
+                              compute_dtype=torch.float32)
+    m = CUT3R(cfg, device=dev)
+    m.load_state_dict(torch.load(spec["model"], map_location=dev))
+    m.eval()
+    out, secs = {}, {}
+    with torch.no_grad(), full_f32():
+        ref = m(imgs)
+        t0 = time.perf_counter()
+        dp = make_sharded_forward(m, make_mesh(VP_WORLD, axes=("dp",),
+                                               device_type=dev))(imgs)
+        secs["dp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the same weights, now Megatron-split in place
+        tp = make_tp_sharded_forward(m, make_mesh(
+            VP_WORLD, axes=("dp", "tp"), shape=(1, VP_WORLD),
+            device_type=dev))(imgs)
+        secs["tp"] = time.perf_counter() - t0
+    for kind, got in (("dp", dp), ("tp", tp)):
+        for k, r in ref.items():
+            rel = float((got[k].float() - r.float()).abs().max()) / max(
+                float(r.abs().max()), 1e-12)
+            if not rel <= VP_FWD_REL:
+                raise AssertionError(f"phase 13: {kind} forward {k}: max "
+                                     f"err / max {rel:.3e}")
+            out[(kind, k)] = rel
+    return out, secs
+
+
+def _vp_rank(rank, spec):
+    """One rank of phase 13: (a)-(d), its results saved under
+    ``spec["out"]``; any failure ends the process with an error, which
+    fails the parent."""
+    import faulthandler
+    # two ranks share the card: each hands back what a stage freed
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+    from cut3r_slam_tpu_torch.ops import gs_raster_cuda as G
+    from cut3r_slam_tpu_torch.parallel import init_distributed, make_mesh
+    faulthandler.enable()     # a rank dying in native code prints its stack
+    torch.set_num_threads(4)
+    init_distributed(backend=VP_BACKEND, timeout_s=VP_TIMEOUT_S,
+                     init_method=f"tcp://localhost:{spec['port']}",
+                     rank=rank, world_size=VP_WORLD)
+
+    def stage(name, fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        gc.collect()
+        if spec["device"] == "cuda":
+            torch.cuda.empty_cache()
+        log(f"[vp] rank {rank}: {name} in {time.perf_counter() - t:.1f} s")
+        return r
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh(VP_WORLD, axes=("mv",), device_type=spec["device"])
+        out = {"mapping": stage("(a)", _vp_mapping, G, spec, mesh)}
+        out["slam"] = stage("(b)", _vp_slam, G, spec, VP_WORLD)
+        out["train"] = stage("(c)", _vp_train, spec, rank)
+        out["infer"] = stage("(d)", _vp_infer, spec, rank)
+        out["seconds"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(spec["out"], f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _vp_close_arena(what, got, ref, lr):
+    """An arena parameter at the JAX suite's tolerance (VP_ARENA_TOL) on
+    all but at most 1e-4 of its elements, those within two Adam steps (2
+    lr): as phase 9 holds parameters, because Adam divides each gradient
+    element by its own magnitude, so an element whose gradient lies at the
+    rounding floor moves by a different fraction of a step when the sum
+    over views is reordered. Returns (elements beyond the tolerance, max
+    |diff| / lr)."""
+    got, ref = got.numpy(), ref.numpy()
+    bad = ~np.isclose(got, ref, **VP_ARENA_TOL)
+    steps = float(np.abs(got - ref).max()) / lr
+    if bad.sum() > 1e-4 * bad.size or steps > 2.0:
+        fail(f"phase 13: {what}: {int(bad.sum())} of {bad.size} elements "
+             f"beyond rtol {VP_ARENA_TOL['rtol']} / atol "
+             f"{VP_ARENA_TOL['atol']}, max |diff| {steps:.3f} lr")
+    return int(bad.sum()), steps
+
+
+def _vp_close(what, got, ref, tol):
+    got = got.numpy() if hasattr(got, "numpy") else np.asarray(got)
+    ref = ref.numpy() if hasattr(ref, "numpy") else np.asarray(ref)
+    bad = ~np.isclose(got, ref, **tol)
+    if bad.any():
+        fail(f"phase 13: {what}: {int(bad.sum())} of {bad.size} elements "
+             f"beyond rtol {tol['rtol']} / atol {tol['atol']} (max |diff| "
+             f"{float(np.abs(got - ref).max()):.3e})")
+    return float(np.abs(got - ref).max())
+
+
+def _vp_nccl_world1(spec, card):
+    """(e) NCCL at world size 1: one all_reduce of a window iteration's
+    Gaussian-gradient buffer through the view-parallel reducer."""
+    import torch
+    import torch.distributed as dist
+    from cut3r_slam_tpu_torch.parallel import init_distributed, make_mesh
+    from cut3r_slam_tpu_torch.parallel.mapping import ViewShards
+    init_distributed(backend="nccl", timeout_s=VP_TIMEOUT_S,
+                     init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                     world_size=1)
+    try:
+        sh = ViewShards(make_mesh(1, axes=("mv",)))
+        n = spec["map_cfg"]["capacity"]
+        g = torch.Generator(device="cuda").manual_seed(0)
+        grads = [torch.randn(n, *s, generator=g, device="cuda")
+                 for s in ((3,), (3,), (), (3,), (4,))]
+        red = sh.all_reduce(grads + [torch.ones((), device="cuda")] * 2)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(grads, red))
+        ms = cuda_ms(lambda: sh.all_reduce(grads), 10)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if not same:
+        fail("phase 13: NCCL all_reduce at world size 1 changed the buffer")
+    return backend, sum(x.numel() for x in grads), ms
+
+
+def view_parallel_phase(G, card, spec):
+    """Phase 13 (see the module docstring). ``spec``: phase 6's mapper
+    state and settings (``vp_spec``). Returns rank 0's K1 / K2 launches
+    over (b)'s ``run``."""
+    import torch
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    dev = spec["device"]
+    model = plausible_random_cut3r(seed=0, config=spec.get("cut3r"),
+                                   device=dev)
+    torch.save(model.state_dict(), spec["model"])
+    del model
+    # the one-rank references, the card to themselves
+    seq_map = _vp_mapping(G, spec, None)
+    seq_slam = _vp_slam(G, spec, 0)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[vp] one-rank references in {time.perf_counter() - t_phase:.1f} "
+        f"s; {VP_BACKEND} ranks start")
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_vp_rank, args=(dict(spec, port=_free_port()),),
+                   nprocs=VP_WORLD, join=False)
+    try:
+        while not ctx.join():
+            pass
+    except Exception as e:    # a rank failed: the phase fails
+        fail(f"phase 13: a rank failed: {e}")
+    ranks = [torch.load(os.path.join(spec["out"], f"rank{r}.pt"),
+                        weights_only=False) for r in range(VP_WORLD)]
+    log(f"[vp] ranks done in {time.perf_counter() - t0:.1f} s (rank work "
+        f"{ranks[0]['seconds']:.1f} / {ranks[1]['seconds']:.1f} s)")
+
+    # (a) mapping, each rank against the one-rank run, ranks bitwise equal
+    mc = spec["map_cfg"]
+    lrs = {"xyz": mc["position_lr"], "f_dc": mc["feature_lr"],
+           "opacity_logit": mc["opacity_lr"], "log_scales": mc["scaling_lr"],
+           "quat": mc["rotation_lr"]}
+    for name in ("window", "gba", "refine"):
+        s, r0, r1 = (x[name] for x in (seq_map, ranks[0]["mapping"],
+                                       ranks[1]["mapping"]))
+        outside, steps = 0, 0.0
+        for k, v in r0["arena"].items():
+            if not torch.equal(v, r1["arena"][k]):
+                fail(f"phase 13: {name}: the ranks' arena {k} differs")
+            o, st = _vp_close_arena(f"{name} arena {k}", v, s["arena"][k],
+                                    lrs[k])
+            outside, steps = outside + o, max(steps, st)
+        w2c = _vp_close(f"{name} w2c", r0["w2c"], s["w2c"], VP_W2C_TOL)
+        extra = ""
+        if name == "window":
+            _vp_close("window loss", r0["loss"], s["loss"], VP_LOSS_TOL)
+            extra = f", loss {r0['loss']:.6f} vs {s['loss']:.6f}"
+        if name == "refine":
+            _vp_close("refine pointmaps", r0["pm"], s["pm"],
+                      dict(rtol=1e-4, atol=1e-4))
+            if not torch.equal(r0["val"], s["val"]):
+                fail("phase 13: refine validity masks differ")
+        log(f"[vp] (a) {name}: ms an iteration one rank "
+            f"{s['ms_per_iter']:.2f}, two ranks {r0['ms_per_iter']:.2f} / "
+            f"{r1['ms_per_iter']:.2f}; K1/K2 one rank "
+            f"{s['launches']['gs_blend_fwd']}/{s['launches']['gs_blend_bwd']}"
+            f", per rank {r0['launches']['gs_blend_fwd']}/"
+            f"{r0['launches']['gs_blend_bwd']} and "
+            f"{r1['launches']['gs_blend_fwd']}/"
+            f"{r1['launches']['gs_blend_bwd']}; max |w2c diff| {w2c:.2e}"
+            f"{extra}; arena elements beyond the JAX tolerance {outside}, "
+            f"max |diff| {steps:.4f} lr | {card}")
+    # (b) the whole system
+    b0, b1 = ranks[0]["slam"], ranks[1]["slam"]
+    if not (b0["events"] == b1["events"] == seq_slam["events"]) \
+            or not np.array_equal(b0["tstamp"], seq_slam["tstamp"]) \
+            or not np.array_equal(b1["tstamp"], seq_slam["tstamp"]):
+        fail(f"phase 13: keyframe decisions differ: {b0['events']} / "
+             f"{b1['events']} vs one rank {seq_slam['events']}")
+    if not b0["events"]:
+        fail("phase 13: no mapping event ran in (b)")
+    if not np.array_equal(b0["pose"], b1["pose"]) \
+            or not torch.equal(b0["alive"], b1["alive"]) \
+            or not all(torch.equal(v, b1["arena"][k])
+                       for k, v in b0["arena"].items()):
+        fail("phase 13: the ranks' keyframe poses or arenas differ")
+    pose_err = float(np.abs(b0["pose"] - seq_slam["pose"]).max())
+    if not pose_err <= VP_POSE_BOUND:
+        fail(f"phase 13: keyframe poses {pose_err:.3e} from the one-rank "
+             f"run (bound {VP_POSE_BOUND:.1e})")
+    for r, b in enumerate((b0, b1)):
+        if min(b["launches"].values()) <= 0:
+            fail(f"phase 13: rank {r} launched no kernel in run(): "
+                 f"{b['launches']}")
+    log(f"[vp] (b) SLAMSystem.run, view_parallel 2, {spec['frames']} "
+        f"frames: events {b0['events']}, {len(b0['tstamp'])} keyframes as "
+        f"one rank; max |pose diff| {pose_err:.3e} (bound "
+        f"{VP_POSE_BOUND:.1e}); "
+        f"frames/s one rank {seq_slam['fps']:.3f}, two ranks "
+        f"{b0['fps']:.3f} / {b1['fps']:.3f}; K1/K2 in run() one rank "
+        f"{seq_slam['launches']}, rank 0 {b0['launches']}, rank 1 "
+        f"{b1['launches']} | {card}")
+    # (c) training: the card's world-2 steps against the CPU's
+    tiny = ranks[0]["train"]["tiny"]
+    names = ranks[0]["train"]["names"]
+    worst = {}
+    for name in ("dp2", "fsdp2"):
+        (lc, pc), (lg, pg) = tiny[("cpu", name)], tiny[(dev, name)]
+        a, b = lg[0]["loss"], lc[0]["loss"]
+        if not abs(a - b) <= 1e-5 * abs(b) + 5e-6:
+            fail(f"phase 13: {name} loss card {a} vs cpu {b}")
+        sc = torch.load(pc, map_location="cpu", weights_only=False)
+        sg = torch.load(pg, map_location="cpu", weights_only=False)
+        mu = [{names[i]: st["mu"] for i, st in s_["opt_state"]["state"]
+               .items()} for s_ in (sc, sg)]
+        worst[name] = (grads_agree(mu[0], mu[1], f"phase 13: {name}"),
+                       params_agree(sc["params"], sg["params"], [1e-4],
+                                    f"phase 13: {name}")[0])
+    full = ranks[0]["train"].get("full")
+    if full is not None and not np.isfinite(full["loss"]):
+        fail(f"phase 13: full-width fsdp loss {full['loss']}")
+    log(f"[vp] (c) tiny train() steps at world 2 over {VP_BACKEND} ("
+        + ", ".join(f"{d} {n} {t:.1f} s" for (d, n), t in
+                    ranks[0]["train"]["tiny_seconds"].items())
+        + "), card vs cpu: dp2 / fsdp2 gradient (Adam first moment) worst "
+        f"{worst['dp2'][0]:.2e} / {worst['fsdp2'][0]:.2e} of norm + floor, "
+        f"params max {worst['dp2'][1]:.2e} / {worst['fsdp2'][1]:.2e}"
+        + ("" if full is None else
+           f"; full width V=4 {VP_TRAIN_HW[0]}x{VP_TRAIN_HW[1]} "
+           f"make_train_step under fsdp 2: {full['seconds']:.3f} s (a "
+           f"first step; setup with the weights' broadcast "
+           f"{full['setup']:.1f} s), loss {full['loss']:.4f}, peak "
+           f"{full['peak_gb']:.2f} GiB a rank")
+        + f" | {card}")
+    # (d) inference
+    inf, secs = ranks[0]["infer"]
+    worst = {kind: max(v for k, v in inf.items() if k[0] == kind)
+             for kind in ("dp", "tp")}
+    log(f"[vp] (d) full-width f32 forward, V=2 B=2 at {spec['hw'][0]}x"
+        f"{spec['hw'][1]}, max err / max of any output vs the single "
+        f"forward (bound {VP_FWD_REL}): dp {worst['dp']:.2e}, tp "
+        f"{worst['tp']:.2e}; {secs['dp']:.2f} / {secs['tp']:.2f} s with "
+        f"their setup (the weights' broadcast, the tp split) | {card}")
+    # (e) the production backend on the card
+    if dev == "cuda":
+        backend, n, ms = _vp_nccl_world1(spec, card)
+        log(f"[vp] (e) {backend} at world size 1: all_reduce of a "
+            f"{n}-float mapping-gradient buffer {ms:.3f} ms | {card}")
+    shutil.rmtree(spec["out"], ignore_errors=True)
+    log(f"[vp] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return b0["launches"]
+
+
+def vp_spec(slam, slam_cfg, frames_hw, K4, device="cuda"):
+    """Phase 13's inputs from phase 6's system: its mapper's state saved
+    once (``MappingBackend.save``), its mapping settings with 4-view
+    global-BA steps, the window, 5 views to refine and the live loop's
+    settings."""
+    import dataclasses
+    m = slam.mapper
+    out = _scratch("chip_smoke_vp_")
+    m.save(os.path.join(out, "mapper.npz"))
+    valid = [i for i in range(m.cfg.cam_capacity) if bool(m.cams.valid[i])]
+    return {"device": device, "out": out,
+            "mapper": os.path.join(out, "mapper.npz"),
+            "model": os.path.join(out, "cut3r.pt"),
+            "map_cfg": dict(dataclasses.asdict(m.cfg),
+                            gba_views_per_iter=VP_GBA_K,
+                            gba_segment=VP_GBA_SEGMENT),
+            "K4_map": m.K4.cpu().numpy(), "window": list(m.current_window),
+            "refine": valid[:VP_REFINE_VIEWS], "slam_cfg": slam_cfg,
+            "hw": frames_hw, "K4": np.asarray(K4, np.float32).tolist(),
+            "frames": VP_FRAMES}
+
+
 def kernel_phases(G, card):
     """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
     scene, the staging-edge scene and at the mapping shape (V = 1 and 10,
@@ -2697,6 +3300,9 @@ def main():
     log(f"[slice] main-path launches: {launches}; loop closures fired: "
         f"{len(slam.backend.closed)} (random weights: none is required)")
 
+    # phase 13's input: this mapper's state and settings, saved now
+    vp = vp_spec(slam, slam_cfg, (H, W), K4)
+
     mark("phase 6")
     # 7. the loop-closure path ------------------------------------------------------
     lc_launches = loop_closure_phase(model, G, card)
@@ -2736,6 +3342,12 @@ def main():
                                                           K4)
 
     mark("phase 12")
+    # 13. view-parallel mapping, dp / fsdp training, sharded inference ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    vp_launches = view_parallel_phase(G, card, vp)
+
+    mark("phase 13")
 
     kernels = []
     for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
@@ -2754,7 +3366,8 @@ def main():
                                  "offline_eval": offline_launches[name],
                                  "mono_prior": prior_launches[name],
                                  "droid": droid_launches[name],
-                                 "viewer": viewer_launches[name]},
+                                 "viewer": viewer_launches[name],
+                                 "view_parallel": vp_launches[name]},
             "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})

@@ -14,6 +14,12 @@ seed 0. ``--tiny-model`` builds the tiny configuration, which loads a
 tiny checkpoint when ``--ckpt`` names one (the JAX driver's tiny model is
 always random). ``--gui`` serves the live viewer on ``--gui_port``
 (``GUI.active``; port 0 takes a free one) and prints its URL.
+
+View-parallel mapping over N cards: a config with ``Mapping.view_parallel:
+N``, launched as ``torchrun --nproc_per_node=N -m
+cut3r_slam_tpu_torch.demo ...``; the process group is initialized when
+``WORLD_SIZE`` > 1 (gloo with ``--cpu``, else NCCL), every rank runs the
+stream and rank 0 writes the outputs.
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ def build_model(args, device):
 
 def main(argv=None):
     args = parse_args(argv)
+    from .parallel.mesh import init_distributed
     from .slam.system import SLAMSystem
     from .utils.config import DEFAULT_CONFIG, load_calib, load_config
     from .utils.image import _imread, list_images, mono_stream, \
@@ -81,6 +88,7 @@ def main(argv=None):
     from .utils.profiling import StageTimer
 
     device = "cpu" if args.cpu else "cuda"
+    rank, _ = init_distributed(backend="gloo" if args.cpu else None)
     cfg = json.loads(json.dumps(DEFAULT_CONFIG))
     if args.config:
         cfg.update(load_config(args.config))
@@ -111,10 +119,11 @@ def main(argv=None):
                       device=device)
     if slam.viewer is not None:
         print(f"[demo] live viewer at http://127.0.0.1:{slam.viewer.port}/")
-    os.makedirs(args.output, exist_ok=True)
-    with open(os.path.join(args.output, "image_shape.txt"), "w") as f:
-        f.write(f"track {Ht}x{tw} map {Hm}x{tw} src {h0}x{w0} "
-                f"crop {args.cropborder}\n")
+    if rank == 0:
+        os.makedirs(args.output, exist_ok=True)
+        with open(os.path.join(args.output, "image_shape.txt"), "w") as f:
+            f.write(f"track {Ht}x{tw} map {Hm}x{tw} src {h0}x{w0} "
+                    f"crop {args.cropborder}\n")
     # as demo.py: only whole frames and terminate are timed (attaching the
     # timer to ``slam`` would time, and synchronize, every stage)
     timer = StageTimer()
@@ -133,16 +142,17 @@ def main(argv=None):
         prev = t
     with timer("terminate"):
         result = slam.terminate(prev if prev is not None else 0)
-    timer.dump(os.path.join(args.output, "timing.json"))
+    if rank == 0:
+        timer.dump(os.path.join(args.output, "timing.json"))
     dt = time.time() - t0
-
-    slam.save_trajectory(os.path.join(args.output, "traj_kf.txt"))
     result.update({"frames": n, "seconds": round(dt, 2),
                    "fps": round(n / max(dt, 1e-9), 2),
                    "keyframes": slam.keyframes.count})
-    with open(os.path.join(args.output, "result.json"), "w") as f:
-        json.dump(result, f, indent=2)
-    print(json.dumps(result))
+    if rank == 0:
+        slam.save_trajectory(os.path.join(args.output, "traj_kf.txt"))
+        with open(os.path.join(args.output, "result.json"), "w") as f:
+            json.dump(result, f, indent=2)
+        print(json.dumps(result))
     return slam, result
 
 

@@ -147,23 +147,25 @@ class Attention(nn.Module):
     def __init__(self, dim, num_heads, use_rope=False, rope_base=100.0,
                  dtype=torch.float32):
         super().__init__()
+        # a tensor-parallel rank holds num_heads / tp heads of head_dim
+        # (parallel/inference.py)
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.use_rope = use_rope
         self.rope_base = rope_base
         self.qkv = Linear(dim, 3 * dim, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
 
     def forward(self, x, xpos):
-        B, N, C = x.shape
-        H = self.num_heads
-        D = C // H
+        B, N, _ = x.shape
+        H, D = self.num_heads, self.head_dim
         qkv = self.qkv(x).reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
         if self.use_rope and xpos is not None:
             q = apply_rope2d(q, xpos, self.rope_base)
             k = apply_rope2d(k, xpos, self.rope_base)
         out = _sdpa(q, k, v, D ** -0.5)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return self.proj(out.transpose(1, 2).reshape(B, N, H * D))
 
 
 class CrossAttention(nn.Module):
@@ -171,6 +173,7 @@ class CrossAttention(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.use_rope = use_rope
         self.rope_base = rope_base
         self.projq = Linear(dim, dim, dtype=dtype)
@@ -179,17 +182,16 @@ class CrossAttention(nn.Module):
         self.proj = Linear(dim, dim, dtype=dtype)
 
     def forward(self, query, key, value, qpos, kpos):
-        B, Nq, C = query.shape
+        B, Nq, _ = query.shape
         Nk = key.shape[1]
-        H = self.num_heads
-        D = C // H
+        H, D = self.num_heads, self.head_dim
         if Nk == 1:
             # one key: the softmax is exactly 1, every query reads the one
             # value, and q / k get exactly zero gradient (as in the JAX
             # model's softmax; a fused attention's backward leaves
             # rounding noise there, which Adam would turn into steps)
             v = self.projv(value)
-            return self.proj(v.expand(B, Nq, C))
+            return self.proj(v.expand(B, Nq, H * D))
         q = self.projq(query).reshape(B, Nq, H, D).transpose(1, 2)
         k = self.projk(key).reshape(B, Nk, H, D).transpose(1, 2)
         v = self.projv(value).reshape(B, Nk, H, D).transpose(1, 2)
@@ -199,7 +201,7 @@ class CrossAttention(nn.Module):
             if kpos is not None:
                 k = apply_rope2d(k, kpos, self.rope_base)
         out = _sdpa(q, k, v, D ** -0.5)
-        return self.proj(out.transpose(1, 2).reshape(B, Nq, C))
+        return self.proj(out.transpose(1, 2).reshape(B, Nq, H * D))
 
 
 class Block(nn.Module):

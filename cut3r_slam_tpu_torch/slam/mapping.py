@@ -31,6 +31,11 @@ same fused renders the JAX package's Pallas side uses on the chip:
   (``lc_transform``, their Adam moments zeroed), then refine every valid
   camera's pose against the moved map.
 
+With ``mesh`` (a ``DeviceMesh`` with an ``mv`` axis of more than one
+rank) the window optimization, the global-BA batch and the batched pose
+refinement shard their views over the ranks (``parallel/mapping.py``);
+every rank holds the whole arena and camera buffer, equal on every rank.
+
 Parameters update in place: the hot paths run on live-prefix views of the
 arena (``arena[:last_alive_bound]``), so writes reach the full arena
 directly. Dead slots' gradients are masked before Adam (``_mask_grads``).
@@ -150,7 +155,10 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
 
 class MappingBackend:
     def __init__(self, cfg: MappingConfig, K4: np.ndarray, device="cuda",
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
+        """``mesh``: an optional ``DeviceMesh`` with an ``mv`` axis; over
+        more than one rank it installs the view-parallel window
+        optimization, global-BA batch and pose refinement."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.K4 = torch.as_tensor(np.asarray(K4, np.float32),
@@ -161,6 +169,18 @@ class MappingBackend:
         self.rng_seed = int(seed)
         self.timer = None  # optional utils.profiling.StageTimer
         self.reset_state()
+        self.mesh = None
+        if mesh is not None:
+            from ..parallel.mesh import mesh_size
+            if mesh_size(mesh, "mv") > 1:
+                from ..parallel.mapping import (make_parallel_optimize,
+                                                make_parallel_gba_batch,
+                                                make_parallel_pose_refine)
+                self.mesh = mesh
+                self.optimization_steps = make_parallel_optimize(self, mesh)
+                self._gba_batch = make_parallel_gba_batch(self, mesh)
+                self.pose_refine_multi = make_parallel_pose_refine(self,
+                                                                   mesh)
 
     def reset_state(self):
         cfg = self.cfg
@@ -360,6 +380,16 @@ class MappingBackend:
 
     def _window_loss(self, params, pd, ex, alive, images, depths_gt, w2c,
                      weights, bins, gdns):
+        """The window's weighted mean loss: ``_window_loss_raw`` over the
+        weight sum (at least 1)."""
+        return self._window_loss_raw(params, pd, ex, alive, images,
+                                     depths_gt, w2c, weights, bins, gdns) \
+            / torch.clamp(weights.sum(), min=1.0)
+
+    def _window_loss_raw(self, params, pd, ex, alive, images, depths_gt, w2c,
+                         weights, bins, gdns):
+        """The weighted SUM of the views' losses (a view-parallel rank
+        sums its own views; the ranks' sums add up to the window's)."""
         cfg = self.cfg
         outs = render_window(params, alive, w2c, self.K4, self.raster_cfg,
                              trans_deltas=pd["t"], rot_deltas=pd["r"],
@@ -372,7 +402,7 @@ class MappingBackend:
         iso = self._iso_terms(params, outs["visibility"])
         losses = (rgb_l + cfg.lambda_depth * depth_l
                   + cfg.lambda_normal * norm_l + cfg.lambda_iso * iso)
-        return (losses * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+        return (losses * weights).sum()
 
     def optimization(self, iters: int, window: List[int],
                      optimize_pose: bool = True):
@@ -382,13 +412,20 @@ class MappingBackend:
         return loss
 
     def optimization_steps(self, iters: int, window: List[int],
-                           optimize_pose: bool = True):
+                           optimize_pose: bool = True, shards=None):
         """GENERATOR yielding the last loss of each ``opt_segment`` slice.
         Only the window's real views render (the JAX package pads the
-        window with zero-weight views, which contribute nothing)."""
+        window with zero-weight views, which contribute nothing).
+        ``shards`` (``parallel.mapping.ViewShards``): this rank optimizes
+        its slice of the window; the loss and the Gaussian gradients are
+        summed over the ranks each iteration and the views' poses and
+        exposures gathered at each segment's end."""
         cfg, K4, rcfg, dev = self.cfg, self.K4, self.raster_cfg, self.device
         idx = torch.as_tensor(list(window)[-cfg.window_size:],
                               dtype=torch.long, device=dev)
+        if shards is not None:
+            idx_all, sizes = idx, shards.sizes(int(idx.shape[0]))
+            idx = idx[shards.rows(sizes)]
         V = int(idx.shape[0])
         weights = torch.ones(V, device=dev)
         seg = cfg.opt_segment
@@ -410,8 +447,10 @@ class MappingBackend:
                 w2c = self.cams.w2c[idx].clone()
                 exposure = {"a": self.cams.exposure_a[idx].clone(),
                             "b": self.cams.exposure_b[idx].clone()}
-                bins = bin_window(params, alive, w2c, K4, rcfg)
-                gdns = depth_to_normal(depths_gt, K4)
+                bins = gdns = None
+                if V:   # a view-parallel rank may hold no view
+                    bins = bin_window(params, alive, w2c, K4, rcfg)
+                    gdns = depth_to_normal(depths_gt, K4)
                 for _ in range(seg):
                     p = {k: _leaf(v) for k, v in params.items()}
                     if optimize_pose:
@@ -420,13 +459,17 @@ class MappingBackend:
                     else:
                         pd = {"t": zeros, "r": zeros}
                         ex = exposure
-                    loss_t = self._window_loss(p, pd, ex, alive, images,
-                                               depths_gt, w2c, weights, bins,
-                                               gdns)
+                    args = (p, pd, ex, alive, images, depths_gt, w2c,
+                            weights, bins, gdns)
                     leaves = list(p.values())
                     if optimize_pose:
                         leaves += [pd["t"], pd["r"], ex["a"], ex["b"]]
-                    grads = torch.autograd.grad(loss_t, leaves)
+                    if shards is None:
+                        loss_t = self._window_loss(*args)
+                        grads = torch.autograd.grad(loss_t, leaves)
+                    else:
+                        loss_t, grads = shards.window_value_and_grad(
+                            self._window_loss_raw, args, leaves, weights)
                     gp = _mask_grads(dict(zip(PARAM_KEYS, grads[:5])), alive)
                     adam_b.step(params, gp, self._lrs())
                     if optimize_pose:
@@ -444,6 +487,8 @@ class MappingBackend:
                 self.cams.w2c[idx] = w2c
                 self.cams.exposure_a[idx] = exposure["a"]
                 self.cams.exposure_b[idx] = exposure["b"]
+                if shards is not None:
+                    shards.share_camera_rows(self.cams, idx_all, sizes)
             if stop_rel > 0.0:
                 cur = float(loss)
                 if prev_loss is not None and abs(prev_loss - cur) <= \
@@ -581,10 +626,21 @@ class MappingBackend:
     def gba_plan(self, total_iters: int, n_views: int):
         """(k, m, blocks per segment, segments) of a global BA over
         ``total_iters`` view renders: k = min(gba_views_per_iter, n_views)
-        views a step, ceil(total / k) steps in blocks of m, whole segments
+        views a step (under a mesh rounded down to a multiple of its ``mv``
+        ranks), ceil(total / k) steps in blocks of m, whole segments
         of ``gba_segment // m`` blocks."""
         cfg = self.cfg
         k = max(1, min(cfg.gba_views_per_iter, n_views))
+        if self.mesh is not None:
+            # the JAX package's rule: k a multiple of the ranks (shrunk,
+            # never padded: a repeated view would update its pose twice)
+            from ..parallel.mesh import mesh_size
+            n_dev = mesh_size(self.mesh, "mv")
+            if k % n_dev:
+                k = max(n_dev if n_views >= n_dev else 1,
+                        (k // n_dev) * n_dev)
+            if k > n_views:
+                k = 1
         m = max(1, cfg.gba_resample_every)
         n_steps = max(1, -(-total_iters // k))
         blocks_per_seg = max(1, cfg.gba_segment // m)

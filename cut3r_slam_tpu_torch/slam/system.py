@@ -23,8 +23,20 @@ package. ``GUI: {active: true, port: N, max_splats: M}`` serves the live
 viewer (``gui/server.py``) from a daemon thread; the loop holds
 ``state_lock`` around every stage and mapping slice that writes keyframe
 or map state, and the viewer reads and renders under it (the arena is
-updated in place). The configuration ported is one device; asking for
-view-parallel mapping raises NotImplementedError.
+updated in place).
+
+``Mapping.view_parallel: N`` (N > 1) runs view-parallel mapping over a
+process group of N ranks (``torchrun``, one process per card; the group
+initialized by ``parallel.init_distributed``): every rank runs the whole
+system, tracking, loop closure, the writeback and ``terminate``
+replicated, and the mapper's window optimization, global-BA batch and
+pose refinement shard their views over the ranks
+(``parallel/mapping.py``). The ranks must take the same control
+decisions (keyframe, new submap, loop closure): each frame they are
+compared across the ranks before any mapping collective, and a mismatch
+raises on every rank instead of leaving one rank waiting in a collective.
+Only rank 0 writes files. Without a process group of N ranks the system
+raises (the JAX package maps sequentially when it has fewer devices).
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import full_f32, resolve_device
 from ..models import CUT3R
@@ -80,11 +93,6 @@ def _drain(gen):
             return e.value
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to cut3r_slam_tpu_torch "
-                              "yet (see ROADMAP.md)")
-
-
 class SLAMSystem:
     def __init__(self, model: CUT3R, cfg: Dict, buffer: int = 512,
                  img_hw=(384, 512), map_hw=None, enable_mapping: bool = True,
@@ -98,8 +106,19 @@ class SLAMSystem:
         mcfg = cfg.get("Mapping", {})
         trcfg = cfg.get("Training", {})
         mf_cfg = tcfg.get("motion_filter", {})
-        if int(mcfg.get("view_parallel", 0)) > 1:
-            _not_ported("view-parallel mapping (Mapping.view_parallel)")
+        self.mesh, self.rank = None, 0
+        n_mv = int(mcfg.get("view_parallel", 0))
+        if n_mv > 1:
+            from ..parallel.mesh import TORCHRUN_HINT, make_mesh
+            world = dist.get_world_size() if dist.is_initialized() else 0
+            if world != n_mv:
+                raise RuntimeError(
+                    f"Mapping.view_parallel = {n_mv} needs a process group "
+                    f"of {n_mv} ranks (found {world or 'none'}): "
+                    + TORCHRUN_HINT)
+            self.mesh = make_mesh(n_mv, axes=("mv",),
+                                  device_type=self.device.type)
+            self.rank = dist.get_rank()
 
         H, W = img_hw
         self.img_hw = img_hw
@@ -183,7 +202,8 @@ class SLAMSystem:
         mh, mw = self.map_hw
         self.mapper = MappingBackend(
             MappingConfig(height=mh, width=mw, **self._map_cfg_extra),
-            np.asarray(K4_map, np.float32), device=self.device)
+            np.asarray(K4_map, np.float32), device=self.device,
+            mesh=self.mesh)
         self.mapper.timer = self.timer
 
     def _tm(self, stage: str):
@@ -278,24 +298,28 @@ class SLAMSystem:
             with self._tm("frontend"):
                 run_backend, viz_range, submap_idx = self.frontend.run(t,
                                                                        last)
+            updates = None
             if run_backend and self.enable_loop:
                 with self._tm("loop_backend"):
                     updates = self.backend.run(self.frontend.t1)
-                if updates is not None and self.mapper is not None:
-                    self.mapper.gaussian_update(
-                        updates["submap_idx"], updates["pose_updates"],
-                        list(updates["camera_idx"]),
-                        np.linalg.inv(pose_vec_to_matrix_np(
-                            updates["camera_pose"])))
-                if updates is not None and self.pgba is not None:
-                    # loop edge from the LC-corrected poses, then a global
-                    # Sim(3) pass over all keyframes
-                    kf = self.keyframes
-                    self.pgba.on_new_keyframes(kf, kf.count)
-                    self.pgba.on_loop(
-                        self.backend.closed_loop["idx_matched"][-1],
-                        self.backend.closed_loop["idx_current"][-1], kf)
-                    self.pgba.solve_and_writeback(kf)
+            if self.mesh is not None:
+                self._check_ranks_agree(t, run_backend, viz_range,
+                                        submap_idx, updates is not None)
+            if updates is not None and self.mapper is not None:
+                self.mapper.gaussian_update(
+                    updates["submap_idx"], updates["pose_updates"],
+                    list(updates["camera_idx"]),
+                    np.linalg.inv(pose_vec_to_matrix_np(
+                        updates["camera_pose"])))
+            if updates is not None and self.pgba is not None:
+                # loop edge from the LC-corrected poses, then a global
+                # Sim(3) pass over all keyframes
+                kf = self.keyframes
+                self.pgba.on_new_keyframes(kf, kf.count)
+                self.pgba.on_loop(
+                    self.backend.closed_loop["idx_matched"][-1],
+                    self.backend.closed_loop["idx_current"][-1], kf)
+                self.pgba.solve_and_writeback(kf)
             if viz_range is not None and self.pgba is not None:
                 # odometry constraints for the new keyframes
                 self.pgba.on_new_keyframes(self.keyframes,
@@ -308,6 +332,31 @@ class SLAMSystem:
             with self._tm("mapping"):
                 self.step_mapper(self.map_interleave)
         return viz_range
+
+    def _check_ranks_agree(self, t, run_backend, viz_range, submap_idx,
+                           closed):
+        """Raise on every rank unless every view-parallel rank took this
+        frame's decisions as this one did: the keyframe count, a tracking
+        event and its keyframe range and submap, a loop closure. Runs
+        before any mapping collective of the frame (a MAX and a MIN
+        ``all_reduce`` of the decisions)."""
+        from ..parallel.mesh import all_reduce
+        lo, hi = (viz_range[0], viz_range[-1]) if viz_range is not None \
+            else (-1, -1)
+        mine = torch.tensor(
+            [t, self.keyframes.count, bool(run_backend), lo, hi,
+             -1 if submap_idx is None else submap_idx, bool(closed)],
+            dtype=torch.float64, device=self.device)
+        group = self.mesh.get_group("mv")
+        top = all_reduce(mine, dist.ReduceOp.MAX, group)
+        low = all_reduce(mine, dist.ReduceOp.MIN, group)
+        if not torch.equal(top, low):
+            raise RuntimeError(
+                f"view-parallel ranks disagree at frame {t}: rank "
+                f"{self.rank} decided {mine.tolist()}, the ranks span "
+                f"{low.tolist()} .. {top.tolist()} (frame, keyframes, "
+                "tracking event, its first and last keyframe, submap, "
+                "loop closure)")
 
     def call_mapper(self, viz_range, submap_idx):
         """Build the mapping packet and run the event: drained at once, or
@@ -462,11 +511,13 @@ class SLAMSystem:
         result = {}
         if self.mapper is None:
             return result
-        os.makedirs(self.output_dir, exist_ok=True)
         if add_kf:
             result["added_kf"] = self.add_kf_densify()
         self.mapper.finalize(iters=int(self.finalize_iters))
         filled = self.fill_trajectory() if fill else None
+        if self.rank != 0:    # rank 0 evaluates and writes
+            return result
+        os.makedirs(self.output_dir, exist_ok=True)
         if filled:
             with open(os.path.join(self.output_dir, "traj_full.txt"),
                       "w") as f:

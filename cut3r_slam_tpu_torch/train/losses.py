@@ -11,6 +11,25 @@ functions over stacked view tensors (V, B, ...), as in the JAX package.
 Pose orders: the predicted ``camera_pose`` is (t, quaternion wxyz) as the
 heads emit it; the ground truth is a 4x4 camera-to-world matrix; the
 quaternion distance is taken in the geometry package's xyzw order.
+
+Data parallelism (``group``: the process group of the data-parallel ranks,
+each holding a slice of B). The JAX step computes its means over the
+WHOLE batch; a mean of per-rank means differs from that whenever the
+ranks' valid counts differ. So every reduction over B takes its count over
+``group`` (an ``all_reduce`` of the detached count) and each rank's loss
+is its own part of the global one: its sum over that global count. The
+parts add up to the global loss, and the ranks' gradients must be SUMMED
+(``train_step``). The reductions over B, each audited:
+
+* ``conf_loss``, ``rgb_loss``, ``masked_mean``: masked sums over the
+  batch over the global mask count (the JAX losses.py:92-106, 154-156);
+* ``regr3d_pose_loss``: ``loss_trans`` and ``loss_quat`` are means over
+  (V, B): sums over the global element count; its normalizations
+  (``_avg_dis_norm`` and the translation scales) are per batch element
+  and stay on the element's rank;
+* ``find_opt_scaling``, ``depth_scale_shift_inv_loss``, ``scale_inv_loss``
+  and the BatchList criterion selection: per batch element or per map;
+* the TBPTT step's mean over its chunks: a count every rank shares.
 """
 from __future__ import annotations
 
@@ -28,6 +47,23 @@ __all__ = ["regr3d_pose_loss", "conf_loss", "rgb_loss", "cut3r_total_loss",
 
 # IRLS iterations of the Weiszfeld scale fit (a fixed count: no early exit)
 WEISZFELD_ITERS = 10
+
+
+def _count(n: torch.Tensor, group) -> torch.Tensor:
+    """A count over the batch: as it is, or summed over the data-parallel
+    ``group`` (detached)."""
+    if group is None:
+        return n
+    from ..parallel.mesh import all_reduce
+    return all_reduce(n, group=group)
+
+
+def _mean(x: torch.Tensor, group) -> torch.Tensor:
+    """``x.mean()`` over the whole batch of ``group``'s ranks."""
+    if group is None:
+        return x.mean()
+    return x.sum() / _count(torch.tensor(float(x.numel()), device=x.device),
+                            group)
 
 
 def _avg_dis_norm(pts: torch.Tensor, valid: torch.Tensor, eps: float = 1e-8):
@@ -53,7 +89,7 @@ def _gt_frames(gt):
 
 
 def regr3d_pose_loss(pred: Dict[str, torch.Tensor],
-                     gt: Dict[str, torch.Tensor]
+                     gt: Dict[str, torch.Tensor], group=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Per-pixel regression distances of the self and cross pointmaps, and
     the pose terms.
@@ -91,24 +127,24 @@ def regr3d_pose_loss(pred: Dict[str, torch.Tensor],
     q_gt = matrix_to_quat(gt_rel[..., :3, :3])
     q_pr = wxyz_to_xyzw(pred["camera_pose"][..., 3:7])
     l_quat = 1.0 - torch.abs((q_gt * q_pr).sum(-1))
-    return l_self, l_cross, {"loss_trans": l_trans.mean(),
-                             "loss_quat": l_quat.mean()}
+    return l_self, l_cross, {"loss_trans": _mean(l_trans, group),
+                             "loss_quat": _mean(l_quat, group)}
 
 
 def conf_loss(l: torch.Tensor, conf: torch.Tensor, valid: torch.Tensor,
-              alpha: float = 0.2) -> torch.Tensor:
+              alpha: float = 0.2, group=None) -> torch.Tensor:
     """ConfLoss: mean over valid pixels of conf * l - alpha * log(conf)
     (conf is the activated confidence, > 1)."""
     per_pix = conf * l - alpha * torch.log(conf)
     m = valid.to(l.dtype)
-    return (per_pix * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (per_pix * m).sum() / torch.clamp(_count(m.sum(), group), min=1.0)
 
 
 def rgb_loss(pred_rgb: torch.Tensor, gt_img: torch.Tensor,
-             valid: torch.Tensor) -> torch.Tensor:
+             valid: torch.Tensor, group=None) -> torch.Tensor:
     m = valid.to(pred_rgb.dtype)[..., None]
     return (torch.abs(pred_rgb - gt_img) * m).sum() \
-        / torch.clamp(m.sum() * 3, min=1.0)
+        / torch.clamp(_count(m.sum(), group) * 3, min=1.0)
 
 
 def depth_scale_shift_inv_loss(pred_z: torch.Tensor, gt_z: torch.Tensor,
@@ -146,9 +182,10 @@ def scale_inv_loss(pred_pts: torch.Tensor, gt_pts: torch.Tensor,
     return torch.sqrt((d * d).sum(-1) + 1e-20) * m
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, group=None
+                ) -> torch.Tensor:
     m = mask.to(x.dtype)
-    return (x * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (x * m).sum() / torch.clamp(_count(m.sum(), group), min=1.0)
 
 
 def find_opt_scaling(gt_pts1: torch.Tensor, gt_pts2, pr_pts1: torch.Tensor,
@@ -214,7 +251,7 @@ def find_opt_scaling(gt_pts1: torch.Tensor, gt_pts2, pr_pts1: torch.Tensor,
 
 
 def regr3d_pose_batchlist_loss(pred: Dict[str, torch.Tensor],
-                               gt: Dict[str, torch.Tensor]
+                               gt: Dict[str, torch.Tensor], group=None
                                ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Regr3DPoseBatchList: per-sample criterion selection on top of the
     anchor-view regression. Optional gt flags, each (B,) bool:
@@ -223,7 +260,7 @@ def regr3d_pose_batchlist_loss(pred: Dict[str, torch.Tensor],
     cross-view pixel losses are dropped). Samples with no flag use
     ``regr3d_pose_loss``. All variants are computed and selected per
     sample. aux gains valid_cross."""
-    l_self_std, l_cross_std, aux = regr3d_pose_loss(pred, gt)
+    l_self_std, l_cross_std, aux = regr3d_pose_loss(pred, gt, group)
     valid = gt["valid_mask"]
     zeros = torch.zeros(valid.shape[1], dtype=torch.bool,
                         device=valid.device)
@@ -248,13 +285,14 @@ def regr3d_pose_batchlist_loss(pred: Dict[str, torch.Tensor],
 
 
 def _total(l_self, l_cross, aux, pred, gt, valid_cross, alpha, pose_weight,
-           rgb_weight):
+           rgb_weight, group):
     valid = gt["valid_mask"]
-    loss = (conf_loss(l_self, pred["conf_self"], valid, alpha)
-            + conf_loss(l_cross, pred["conf"], valid_cross, alpha)
+    loss = (conf_loss(l_self, pred["conf_self"], valid, alpha, group)
+            + conf_loss(l_cross, pred["conf"], valid_cross, alpha, group)
             + pose_weight * (aux["loss_trans"] + aux["loss_quat"]))
     if "rgb" in pred and "img" in gt:
-        loss = loss + rgb_weight * rgb_loss(pred["rgb"], gt["img"], valid)
+        loss = loss + rgb_weight * rgb_loss(pred["rgb"], gt["img"], valid,
+                                            group)
     aux["total"] = loss
     return loss, aux
 
@@ -262,23 +300,24 @@ def _total(l_self, l_cross, aux, pred, gt, valid_cross, alpha, pose_weight,
 def cut3r_batchlist_total_loss(pred: Dict[str, torch.Tensor],
                                gt: Dict[str, torch.Tensor],
                                alpha: float = 0.2, pose_weight: float = 1.0,
-                               rgb_weight: float = 1.0
+                               rgb_weight: float = 1.0, group=None
                                ) -> Tuple[torch.Tensor, Dict]:
     """ConfLoss over the BatchList criterion mix, plus the pose and the
-    optional RGB terms."""
-    l_self, l_cross, aux = regr3d_pose_batchlist_loss(pred, gt)
+    optional RGB terms (``group``: see the module docstring)."""
+    l_self, l_cross, aux = regr3d_pose_batchlist_loss(pred, gt, group)
     valid_cross = aux.pop("valid_cross")
     return _total(l_self, l_cross, aux, pred, gt, valid_cross, alpha,
-                  pose_weight, rgb_weight)
+                  pose_weight, rgb_weight, group)
 
 
 def cut3r_total_loss(pred: Dict[str, torch.Tensor],
                      gt: Dict[str, torch.Tensor], alpha: float = 0.2,
-                     pose_weight: float = 1.0, rgb_weight: float = 1.0
-                     ) -> Tuple[torch.Tensor, Dict]:
+                     pose_weight: float = 1.0, rgb_weight: float = 1.0,
+                     group=None) -> Tuple[torch.Tensor, Dict]:
     """ConfLoss over the self and cross pointmaps, plus the pose and the
     optional RGB terms. Returns (loss, aux with loss_trans, loss_quat,
-    total)."""
-    l_self, l_cross, aux = regr3d_pose_loss(pred, gt)
+    total); with a data-parallel ``group`` each is this rank's part of
+    the whole batch's (see the module docstring)."""
+    l_self, l_cross, aux = regr3d_pose_loss(pred, gt, group)
     return _total(l_self, l_cross, aux, pred, gt, gt["valid_mask"], alpha,
-                  pose_weight, rgb_weight)
+                  pose_weight, rgb_weight, group)

@@ -23,6 +23,14 @@ optax's order of operations:
 ``make_tbptt_train_step`` encodes every view without gradient, then runs
 the decoder in chunks whose carry is detached between chunks, the last
 ``grad_chunks`` of them with gradient (truncated BPTT).
+
+Under data / FSDP parallelism (``train/trainer.py``) the model's
+parameters and gradients are FSDP2 ``DTensor`` shards: the optimizer
+updates each rank's local shard, and the clip takes the norm of the FULL
+gradient (each tensor's local sum of squares in f64, summed over the
+shards' ranks), the same on every rank. The step's ``dp_group`` makes
+the loss each rank's part of the whole batch's (``losses.py``); the parts'
+gradients are summed over dp by the trainer's FSDP reduction.
 """
 from __future__ import annotations
 
@@ -80,11 +88,24 @@ class AdamW(torch.optim.Optimizer):
 
     def load_state_dict(self, state_dict):
         """Moments and counts from ``state_dict``; the hyperparameters
-        (learning rate, schedule, decay) stay this optimizer's own."""
+        (learning rate, schedule, decay) stay this optimizer's own. Full
+        moments of a sharded (``DTensor``) parameter become its shards."""
         keep = {k: v for k, v in self.param_groups[0].items()
                 if k not in ("params", "count", "mini_step")}
         super().load_state_dict(state_dict)
         self.param_groups[0].update(keep)
+        for p in self.param_groups[0]["params"]:
+            for k, v in self.state[p].items():
+                if _is_dtensor(p) and not _is_dtensor(v):
+                    self.state[p][k] = _shard_like(p, v)
+
+    def full_state_dict(self):
+        """``state_dict`` with every sharded moment gathered whole (a
+        collective: every rank calls it)."""
+        sd = self.state_dict()
+        sd["state"] = {i: {k: _full(v) for k, v in st.items()}
+                       for i, st in sd["state"].items()}
+        return sd
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -100,11 +121,15 @@ class AdamW(torch.optim.Optimizer):
                     self.state[p]["acc"] = torch.zeros_like(p)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        mesh_dims = _shard_dims(params[0])
+        params = [_local(p) for p in params]
+        grads = [_local(t) for t in grads]
         k = g["accum_steps"]
+        state = [self.state[p] for p in g["params"]]
         if k > 1:
             # the running mean of the micro-gradients (optax's Welford form)
             n = g["mini_step"]
-            acc = [self.state[p]["acc"] for p in params]
+            acc = [_local(st["acc"]) for st in state]
             torch._foreach_add_(acc, torch._foreach_div(
                 torch._foreach_sub(grads, acc), n + 1))
             g["mini_step"] = (n + 1) % k
@@ -121,17 +146,24 @@ class AdamW(torch.optim.Optimizer):
         # gradient by that error; optax's XLA reduction has none of it.
         max_norm, b2 = g["max_norm"], g["b2"]
         if max_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(t, dtype=torch.float64)
-                 for t in grads])).to(grads[0].dtype)
+            norms = torch.stack([torch.linalg.vector_norm(
+                t, dtype=torch.float64) for t in grads])
+            if mesh_dims:
+                # the shards' squares summed over the ranks that shard them
+                from ..parallel.mesh import all_reduce
+                sq = norms * norms
+                for group in mesh_dims:
+                    sq = all_reduce(sq, group=group)
+                norms = torch.sqrt(sq)
+            norm = torch.linalg.vector_norm(norms).to(grads[0].dtype)
             denom = torch.where(norm < max_norm, torch.ones_like(norm),
                                 norm / max_norm)
             torch._foreach_div_(grads, denom)
 
         count = g["count"]
         c = count + 1
-        mu = [self.state[p]["mu"] for p in params]
-        nu = [self.state[p]["nu"] for p in params]
+        mu = [_local(st["mu"]) for st in state]
+        nu = [_local(st["nu"]) for st in state]
         torch._foreach_mul_(mu, B1)
         torch._foreach_add_(mu, grads, alpha=1 - B1)
         torch._foreach_mul_(nu, b2)
@@ -151,6 +183,61 @@ class AdamW(torch.optim.Optimizer):
                                          g["total_steps"]))
         g["count"] = c
         return None
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: in-place updates reach it)."""
+    return x.to_local() if _is_dtensor(x) else x
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank (a plain tensor as it is).
+    The shards are padded to the largest before one ``all_gather`` per
+    sharded mesh dim: ``full_tensor`` hands gloo the empty CUDA shard of an
+    uneven split (a bias of one row over two ranks), which crashed the
+    process on the H100's torch 2.11."""
+    if not _is_dtensor(x):
+        return x
+    import torch.distributed as dist
+    t = x.to_local()
+    for d, pl in enumerate(x.placements):
+        if not pl.is_shard():
+            continue
+        group = x.device_mesh.get_group(d)
+        n, dim = dist.get_world_size(group), pl.dim
+        sizes = [len(c) for c in torch.arange(x.shape[dim]).chunk(n)]
+        sizes += [0] * (n - len(sizes))
+        shape = list(t.shape)
+        shape[dim] = max(sizes)
+        pad = t.new_zeros(shape)
+        pad.narrow(dim, 0, t.shape[dim]).copy_(t)
+        parts = [torch.empty_like(pad) for _ in range(n)]
+        dist.all_gather(parts, pad, group=group)
+        t = torch.cat([q.narrow(dim, 0, k) for q, k in zip(parts, sizes)],
+                      dim)
+    return t
+
+
+def _shard_like(p, full: torch.Tensor):
+    """``full`` (the same on every rank) laid out as the DTensor ``p``:
+    this rank's shard of it, cut locally."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full.to(p.device), p.device_mesh, p.placements,
+                             src_data_rank=None)
+
+
+def _shard_dims(p) -> list:
+    """The process groups of the mesh dims over which ``p`` is sharded
+    (none for a plain tensor)."""
+    if not _is_dtensor(p):
+        return []
+    return [p.device_mesh.get_group(d) for d, pl in enumerate(p.placements)
+            if pl.is_shard()]
 
 
 def make_optimizer(params, lr: float = 1e-4, weight_decay: float = 0.05,
@@ -201,28 +288,42 @@ def _gt(batch, s=None, e=None):
     return {k: batch[k][s:e] for k in keys}
 
 
-def make_train_step(model, opt: AdamW) -> Callable[[Dict], Dict]:
+def _whole_batch(aux: Dict, dp_group) -> Dict:
+    """Detached aux values; under data parallelism the ranks' parts summed
+    into the whole batch's."""
+    out = {k: v.detach() for k, v in aux.items()}
+    if dp_group is None:
+        return out
+    from ..parallel.mesh import all_reduce
+    return {k: all_reduce(v, group=dp_group) for k, v in out.items()}
+
+
+def make_train_step(model, opt: AdamW, dp_group=None
+                    ) -> Callable[[Dict], Dict]:
     """Returns ``train_step(batch) -> aux``: the full forward, the loss,
     its gradient and one optimizer step, in place on ``model`` and
     ``opt``. batch: imgs (V, B, H, W, 3) in [-1, 1]; pts3d (V, B, H, W,
     3) world; camera_pose (V, B, 4, 4) camera-to-world; valid_mask
     (V, B, H, W); img and true_shape optional. aux holds detached
-    loss_trans, loss_quat and total."""
+    loss_trans, loss_quat and total. ``dp_group``: the data-parallel
+    process group when this rank's batch is a slice of the step's (the
+    loss is then this rank's part and aux the whole batch's)."""
 
     def train_step(batch):
         batch = to_device(batch, model.device)
         opt.zero_grad(set_to_none=True)
         pred = model(batch["imgs"], true_shape=batch.get("true_shape"))
-        loss, aux = cut3r_total_loss(pred, _gt(batch))
+        loss, aux = cut3r_total_loss(pred, _gt(batch), group=dp_group)
         loss.backward()
         opt.step()
-        return {k: v.detach() for k, v in aux.items()}
+        return _whole_batch(aux, dp_group)
 
     return train_step
 
 
 def make_tbptt_train_step(model, opt: AdamW, chunk: int = 4,
-                          grad_chunks: int = 4) -> Callable[[Dict], Dict]:
+                          grad_chunks: int = 4, dp_group=None
+                          ) -> Callable[[Dict], Dict]:
     """Truncated-BPTT step: every view is encoded once without gradient
     (the encoder gets no gradient and keeps no activations); the views are
     split into decoder chunks of ``chunk``, the recurrent (state, mem)
@@ -249,12 +350,13 @@ def make_tbptt_train_step(model, opt: AdamW, chunk: int = 4,
                     feat[s:e], pos[s:e], H, W, carry, s,
                     head_outputs=HEAD_OUTPUTS if with_grad else ())
                 if with_grad:
-                    total = total + cut3r_total_loss(out, _gt(batch, s, e))[0]
+                    total = total + cut3r_total_loss(
+                        out, _gt(batch, s, e), group=dp_group)[0]
                     n_loss += 1
             carry = tuple(x.detach() for x in carry)
         loss = total / max(n_loss, 1)
         loss.backward()
         opt.step()
-        return {"total": loss.detach()}
+        return _whole_batch({"total": loss}, dp_group)
 
     return train_step

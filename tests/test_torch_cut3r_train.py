@@ -224,9 +224,11 @@ def test_init_random_keeps_the_tracking_tensors():
 
 
 def test_linear_head_and_fsdp_raise():
-    """``fsdp > 1`` is refused; ``head_type="linear"`` builds the linear
-    head (held against JAX in tests/test_torch_linear_head.py) and an
-    unknown head type raises."""
+    """``fsdp > 1`` without a process group of a size it divides is
+    refused, naming torchrun (the sharded runs:
+    tests/test_torch_parallel_train.py); ``head_type="linear"`` builds the
+    linear head (held against JAX in tests/test_torch_linear_head.py) and
+    an unknown head type raises."""
     from cut3r_slam_tpu_torch.models.heads import LinearPts3dPose
     from cut3r_slam_tpu_torch.train.trainer import TrainerConfig, train
     m = CUT3R(dataclasses.replace(CUT3RConfig.tiny(), head_type="linear"),
@@ -234,5 +236,5 @@ def test_linear_head_and_fsdp_raise():
     assert isinstance(m.downstream_head, LinearPts3dPose)
     with pytest.raises(ValueError, match="head_type"):
         CUT3RConfig(head_type="conv")
-    with pytest.raises(NotImplementedError, match="fsdp"):
+    with pytest.raises(ValueError, match="fsdp = 2.*torchrun"):
         train(None, iter(()), TrainerConfig(fsdp=2), device="cpu")

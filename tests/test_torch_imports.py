@@ -61,7 +61,28 @@ def test_every_module_imports_without_building():
     assert {f"cut3r_slam_tpu_torch.{m}" for m in (
         "geometry.projective", "geometry.sim3_align", "ops.corr", "ops.ba",
         "ops.imageproc", "models.droid_net", "gui.server")} <= set(names)
+    # the scale-out over torch.distributed
+    assert {f"cut3r_slam_tpu_torch.parallel.{m}" for m in (
+        "mesh", "mapping", "inference")} <= set(names)
     assert build._LOADED == {}
+
+
+def test_parallel_loads_no_jax():
+    """``parallel/`` and the modules it wires into pull neither JAX nor
+    the JAX package into a fresh interpreter (the spawned ranks of the
+    parallel tests import them; this process has JAX loaded already)."""
+    import subprocess
+    import sys
+    code = ("import sys, cut3r_slam_tpu_torch.parallel.mesh, "
+            "cut3r_slam_tpu_torch.parallel.mapping, "
+            "cut3r_slam_tpu_torch.parallel.inference, "
+            "cut3r_slam_tpu_torch.slam.system, "
+            "cut3r_slam_tpu_torch.train.trainer; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); print(bad); sys.exit(bool(bad))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_entry_points_refuse_missing_gpu():

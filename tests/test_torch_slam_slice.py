@@ -134,12 +134,13 @@ def test_terminate_outputs(runs):
     ({"Mapping": {"view_parallel": 2}}, {}),
 ], ids=["view_parallel"])
 def test_unported_settings_raise(cfg, kwargs, tmp_path):
-    """Every branch of the JAX SLAMSystem that the port does not have yet
-    is refused when asked for, not silently skipped (the mono prior is
-    ported: tests/test_torch_prior.py; the viewer:
-    tests/test_torch_gui.py)."""
+    """A setting the system cannot honour here is refused when asked for,
+    not silently skipped: view-parallel mapping without a process group
+    of that size names torchrun (the view-parallel runs:
+    tests/test_torch_parallel_slam.py; the mono prior:
+    tests/test_torch_prior.py; the viewer: tests/test_torch_gui.py)."""
     model = CUT3R(CUT3RConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         SLAMSystem(model, cfg, buffer=4, img_hw=(H, W),
                    output_dir=str(tmp_path), device="cpu", **kwargs)
 
