@@ -43,21 +43,22 @@ Phases (any failure exits nonzero, and no result line is printed):
    submaps' Gaussians moved, K1 and K2 launched inside gaussian_update,
    and the PGBA scales, poses, depths and Gaussians are finite;
 8. the demo driver at the JAX package's production mapping schedule:
-   ``cut3r_slam_tpu_torch.demo.main`` over phase 6's frames written as
-   512x384 PNGs, full-width CUT3R (phase 6's random weights), loop closure
-   on, with parallel keyframe refinement, 4-view global-BA steps in
-   4-step blocks, interleave 3 and early stop 0.01 (bench.py's TPU
-   schedule) at phase 6's iteration cuts, then terminate with its eval.
-   The driver's own ``build_model`` runs once first (no checkpoint:
-   random init from seed 0) and must give phase 6's tensors but for the
-   two head layers phase 6 rescales; the run then uses phase 6's model.
-   The phase attaches a stage timer to the system (the driver, as
-   demo.py, times only frames and terminate), so its frame times include
-   one synchronization per stage. It fails unless every output file exists, the keyframe eval holds a
-   finite PSNR over every valid keyframe, renders_kf holds a colour and a
-   depth per keyframe, no frame without a new submap ran more than 3
-   mapping slices, K1 and K2 launched inside the batched refine and the
-   batched global BA, and all state is finite;
+   ``cut3r_slam_tpu_torch.demo.main`` over phase 6's 16 frames (cut from
+   24 for the time limit) written as 512x384 PNGs, full-width CUT3R (phase
+   6's random weights), loop closure on, with parallel keyframe
+   refinement, 4-view global-BA steps in 4-step blocks, interleave 3 and
+   early stop 0.01 (bench.py's TPU schedule) at phase 6's iteration cuts,
+   then terminate with its eval. The driver's own ``build_model`` runs
+   once first (no checkpoint: random init from seed 0) and must give phase
+   6's tensors but for the two head layers phase 6 rescales; the run then
+   uses phase 6's model. The phase attaches a stage timer to the system
+   (the driver, as demo.py, times only frames and terminate), so its frame
+   times include one synchronization per stage. It fails unless every
+   output file exists, the keyframe eval holds a finite PSNR over every
+   valid keyframe, renders_kf holds a colour and a depth per keyframe, no
+   frame without a new submap ran more than 3 mapping slices, K1 and K2
+   launched inside the batched refine and the batched global BA, and all
+   state is finite;
 9. CUT3R training at full width (``CUT3RConfig()`` with the self, cross,
    rgb and pose heads, random weights from seed 0, bf16 compute over f32
    master weights, f32 gradients and AdamW state) on procedural scenes
@@ -178,6 +179,22 @@ Phases (any failure exits nonzero, and no result line is printed):
    bound for a full-width f32 network); (e) NCCL at world size 1: one
    all_reduce of a mapping-gradient buffer through the view-parallel
    reducer;
+14. the benchmark driver: ``cut3r_slam_tpu_torch.bench.run_bench`` in its
+   card mode (full-width bf16 CUT3R with random weights, 384x512, arena
+   2^17, the production mapping schedule at the reference iteration
+   counts), the frame count cut to BENCH_FRAMES. Its last line must have
+   ``warm_pass``, ``steady_state`` and ``mapping_included`` true, a
+   mapping event, every frame run and ``value`` = frames / the timed
+   frames' seconds; the timed pass must repeat the warm pass (the same
+   keyframe count, new-keyframe ranges and mapping slices frame by frame,
+   loop closures, keyframe poses within 1e-6); K1 and K2 must launch
+   inside the timed pass (``launches_by_path["bench"]``: the counts are
+   zeroed at ``reset_state`` and read when the micro-bench starts); the
+   four micro-bench times must be finite and positive; and on the
+   micro-bench's 2^17-Gaussian arena the colour must agree with the plain
+   blend's as K1 does in phase 3 and, in the gradient of ``color.mean()``
+   with cached bins, K2's packed cotangent with the plain VJP's on the
+   same inputs channel by channel (below 5e-4 of the channel's max);
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -199,6 +216,7 @@ from the kernel bodies (FLOPS_PER_PAIR, MUFU_PER_PAIR).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -956,6 +974,7 @@ def loop_closure_phase(model, G, card):
 PRODUCTION_SCHEDULE = {"parallel_kf_refine": True, "gba_views_per_iter": 4,
                        "gba_resample_every": 4, "interleave": 3,
                        "opt_early_stop": 0.01}
+DEMO_FRAMES = 16    # cut from 24 for the time limit: two mapping events
 
 
 def demo_phase(model, frames, K4, G, card):
@@ -3101,6 +3120,178 @@ def vp_spec(slam, slam_cfg, frames_hw, K4, device="cuda"):
             "frames": VP_FRAMES}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the benchmark driver
+# ---------------------------------------------------------------------------
+
+BENCH_FRAMES = 16   # cut from 40: the first mapping event starts at frame 12
+
+
+@contextlib.contextmanager
+def plain_blend(G):
+    """K1 / K2's plain versions in place of the kernels for CUDA tensors
+    inside the block (the launch counts do not move)."""
+    saved = G.blend_forward, G.blend_backward
+    G.blend_forward = lambda A, ext, with_residuals=False: \
+        G.blend_forward_plain(A, ext, with_residuals)
+    G.blend_backward = lambda A, ext, tchk, tleft, *cots: \
+        G.blend_backward_plain(A, ext, *cots)
+    try:
+        yield
+    finally:
+        G.blend_forward, G.blend_backward = saved
+
+
+def micro_vs_plain(G, bench, H, W, n):
+    """The micro-bench's colour and its gradient with cached bins on its
+    arena, kernels against plain versions: (K1's largest colour error,
+    the largest fraction of colour elements off, K2's per-channel max
+    |err| / max |ref| of the packed cotangent, the gradients' max |err| /
+    max |ref| per parameter)."""
+    import torch
+    from cut3r_slam_tpu_torch.slam.renderer import bin_view, render_view
+    params, alive, w2c, K4, rcfg = bench.micro_scene(H, W, n, "cuda")
+    bins = bin_view(params, alive, w2c, K4, rcfg)
+    with torch.no_grad():
+        color = render_view(params, alive, w2c, K4, rcfg)["color"]
+        with plain_blend(G):
+            color_p = render_view(params, alive, w2c, K4, rcfg)["color"]
+    err = (color - color_p).abs()
+    frac = float((err > 1e-3 + 1e-3 * color_p.abs()).float().mean())
+    if frac > 1e-4 or float(err.max()) > 0.05:
+        fail(f"phase 14: micro-bench colour, K1 vs plain: {frac:.2e} of "
+             f"elements off, max err {float(err.max())}")
+
+    seen = {}
+    k2 = G.blend_backward
+
+    def spy(A, ext, tchk, tleft, *cots):
+        seen["args"], seen["dA"] = (A, ext) + cots, k2(A, ext, tchk, tleft,
+                                                        *cots)
+        return seen["dA"]
+
+    def grads():
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = render_view(p, alive, w2c, K4, rcfg, bins=bins)[
+            "color"].mean()
+        return dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+    G.blend_backward = spy
+    try:
+        g_k = grads()
+    finally:
+        G.blend_backward = k2
+    with plain_blend(G):
+        g_p = grads()
+    ref = G.blend_backward_plain(*seen["args"])
+    e2 = (seen["dA"] - ref).abs().amax((0, 1))
+    rel = e2 / ref.abs().amax((0, 1)).clamp(min=1e-12)
+    bad = [k for k in range(rel.shape[0]) if not float(rel[k]) < 5e-4]
+    if bad:
+        fail(f"phase 14: micro-bench K2 channels {bad}: max err / max |ref|"
+             f" = {[float(rel[k]) for k in bad]}")
+    g_rel = {k: float((g_k[k] - g_p[k]).abs().max()
+                      / g_p[k].abs().max().clamp(min=1e-30)) for k in g_k}
+    if not all(torch.isfinite(g).all() for g in g_k.values()):
+        fail("phase 14: non-finite micro-bench gradients")
+    return float(err.max()), frac, rel, g_rel
+
+
+def bench_phase(G, card):
+    """Phase 14 (see the module docstring). Returns the K1 / K2 launches
+    of the timed pass."""
+    import io
+    import torch
+    from cut3r_slam_tpu_torch import bench
+    from cut3r_slam_tpu_torch.slam.system import SLAMSystem
+    t_phase = time.perf_counter()
+    rec = {"resets": 0}
+    reset, micro = SLAMSystem.reset_state, bench.raster_micro
+
+    def reset_state(self):
+        reset(self)
+        rec["resets"] += 1
+        torch.cuda.synchronize()
+        for k in G.LAUNCHES:
+            G.LAUNCHES[k] = 0
+
+    def raster_micro(*a, **k):
+        rec["launches"] = dict(G.LAUNCHES)
+        return micro(*a, **k)
+
+    out = io.StringIO()
+    SLAMSystem.reset_state, bench.raster_micro = reset_state, raster_micro
+    try:
+        with contextlib.redirect_stdout(out):
+            run = bench.run_bench("cuda", n_frames=BENCH_FRAMES)
+    finally:
+        SLAMSystem.reset_state, bench.raster_micro = reset, micro
+    bench_s = time.perf_counter() - t_phase
+    lines = out.getvalue().splitlines()
+    last = json.loads(lines[-1])
+    log(f"[bench] {len(lines)} lines; the last: {lines[-1]}")
+    bd, warm, timed = last["breakdown"], run["warm"], run["timed"]
+    fs = timed["frame_s"]
+    if last != run["result"] or not (last["warm_pass"]
+                                     and last["steady_state"]
+                                     and last["mapping_included"]):
+        fail(f"phase 14: the last line is not a warm, steady, mapping "
+             f"result: {lines[-1]}")
+    if bd["n_mapping_events"] < 1 or last["frames"] != BENCH_FRAMES \
+            or len(fs) != BENCH_FRAMES:
+        fail(f"phase 14: {bd['n_mapping_events']} mapping events over "
+             f"{last['frames']} of {BENCH_FRAMES} frames")
+    if last["value"] != round(len(fs) / sum(fs), 3):
+        fail(f"phase 14: value {last['value']} is not {len(fs)} frames / "
+             f"{sum(fs):.3f} s")
+    if "new_compile_cache_entries" in bd or bd.get("raster_backend") != \
+            "cuda":
+        fail(f"phase 14: breakdown keys {sorted(bd)}")
+    micro_ms = [bd.get(k) for k in ("raster_fwd_ms", "raster_bwd_ms",
+                                    "raster_bin_ms",
+                                    "raster_bwd_cached_bins_ms")]
+    if not all(isinstance(t, float) and np.isfinite(t) and t > 0
+               for t in micro_ms):
+        fail(f"phase 14: micro-bench times {micro_ms}")
+    pose_d = float(np.abs(timed["kf_pose"] - warm["kf_pose"]).max()) \
+        if timed["kf_count"] == warm["kf_count"] else float("inf")
+    if timed["viz"] != warm["viz"] or timed["slices"] != warm["slices"] \
+            or timed["closures"] != warm["closures"] or not pose_d <= 1e-6:
+        fail(f"phase 14: the timed pass did not repeat the warm pass: "
+             f"keyframes {warm['kf_count']} / {timed['kf_count']}, events "
+             f"{warm['viz']} / {timed['viz']}, slices {warm['slices']} / "
+             f"{timed['slices']}, closures {warm['closures']} / "
+             f"{timed['closures']}, pose difference {pose_d:.3e}")
+    launches = rec.get("launches")
+    if rec["resets"] != 1 or launches is None \
+            or min(launches.values()) <= 0:
+        fail(f"phase 14: K1 / K2 inside the timed pass: {launches} "
+             f"({rec['resets']} resets)")
+    log(f"[bench] {BENCH_FRAMES} frames: {last['value']} frames/s "
+        f"amortized, tracking only {bd.get('fps_tracking_only')}, largest "
+        f"frame {bd['max_frame_s']} s, {bd['n_mapping_events']} events / "
+        f"{bd['n_mapping_frames']} mapping frames (mean "
+        f"{bd.get('mapping_frame_s_mean')} s), warm-up {bd['warmup_s']} s; "
+        f"keyframes {timed['kf_count']} in both passes, pose difference "
+        f"{pose_d:.3e}; launches in the timed pass {launches}; loop "
+        f"closure stage {'ran' if 'loop_backend' in bd else 'did not run'}"
+        f", {timed['closures']} closures | {card}")
+    log(f"[bench] micro-bench at 2^17 Gaussians: forward {micro_ms[0]} ms, "
+        f"gradient {micro_ms[1]} ms, binning {micro_ms[2]} ms, gradient "
+        f"with cached bins {micro_ms[3]} ms | {card}")
+    from cut3r_slam_tpu_torch import full_f32
+    with full_f32():
+        e1, fl, rel, g_rel = micro_vs_plain(G, bench, 384, 512, 2 ** 17)
+    log(f"[bench] micro-bench vs plain: colour max err {e1:.3e} (off "
+        f"fraction {fl:.1e}), K2 max err / max |ref| per channel "
+        f"{float(rel.max()):.3e}; gradients max err / max |ref| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in g_rel.items())
+        + " (quat: zero up to rounding for isotropic Gaussians)")
+    log(f"[bench] phase 14 in {time.perf_counter() - t_phase:.1f} s "
+        f"(run_bench {bench_s:.1f} s)")
+    return launches
+
+
 def kernel_phases(G, card):
     """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
     scene, the staging-edge scene and at the mapping shape (V = 1 and 10,
@@ -3309,7 +3500,8 @@ def main():
 
     mark("phase 7")
     # 8. the demo driver at the production mapping schedule ------------------
-    demo_launches, demo_max, demo_out = demo_phase(model, frames, K4, G,
+    demo_launches, demo_max, demo_out = demo_phase(model,
+                                                   frames[:DEMO_FRAMES], K4, G,
                                                    card)
     log(f"[demo] largest frame: {max(frame_s):.2f} s drained (phase 6) vs "
         f"{demo_max:.2f} s interleaved, production schedule (phase 8); not "
@@ -3348,6 +3540,12 @@ def main():
     vp_launches = view_parallel_phase(G, card, vp)
 
     mark("phase 13")
+    # 14. the benchmark driver ----------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_launches = bench_phase(G, card)
+
+    mark("phase 14")
 
     kernels = []
     for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
@@ -3367,7 +3565,8 @@ def main():
                                  "mono_prior": prior_launches[name],
                                  "droid": droid_launches[name],
                                  "viewer": viewer_launches[name],
-                                 "view_parallel": vp_launches[name]},
+                                 "view_parallel": vp_launches[name],
+                                 "bench": bench_launches[name]},
             "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})

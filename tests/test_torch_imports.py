@@ -64,6 +64,9 @@ def test_every_module_imports_without_building():
     # the scale-out over torch.distributed
     assert {f"cut3r_slam_tpu_torch.parallel.{m}" for m in (
         "mesh", "mapping", "inference")} <= set(names)
+    # the benchmark driver and the host tools
+    assert {f"cut3r_slam_tpu_torch.{m}" for m in (
+        "bench", "pose_convert", "generate_synth_scenes")} <= set(names)
     assert build._LOADED == {}
 
 

@@ -25,6 +25,7 @@ from flax.traverse_util import flatten_dict
 
 from cut3r_slam_tpu.models import CUT3R as JCUT3R, CUT3RConfig as JConfig
 from cut3r_slam_tpu.slam.system import SLAMSystem as JSLAM
+from cut3r_slam_tpu_torch.bench import frame_accounting
 from cut3r_slam_tpu_torch.models import CUT3R, CUT3RConfig
 from cut3r_slam_tpu_torch.models.convert import params_from_jax
 from cut3r_slam_tpu_torch.slam.system import SLAMSystem
@@ -43,16 +44,20 @@ MAP_EXTRA = {"pose_refine_iters": 2, "opt_segment": 1}
 
 
 def _drive(slam, frames):
-    """(events as (frame, keyframes), mapping slices per frame) of one
-    pass, then terminate."""
-    events, slices = [], []
+    """(events as (frame, keyframes), mapping slices per frame, the bench's
+    per-frame accounting inputs (new submap, slices, an interleaved event
+    pending before and after)) of one pass, then terminate."""
+    events, slices, acct = [], [], []
     for t, f in enumerate(frames):
+        gen_before = slam._map_gen is not None
         _, viz = slam.run(t, f, K4, last=(t == len(frames) - 1))
         slices.append(slam.frame_map_slices)
+        acct.append((viz is not None, slam.frame_map_slices, gen_before,
+                     slam._map_gen is not None))
         if viz is not None:
             events.append((t, list(viz)))
     slam.terminate(len(frames) - 1, eval_render=False, export_renders=False)
-    return events, slices
+    return events, slices, acct
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +86,7 @@ def runs(tmp_path_factory):
 
 
 def test_schedule_events_and_slices(runs):
-    js, (ev_j, sl_j), ts, (ev_t, sl_t), _, _ = runs
+    js, (ev_j, sl_j, _), ts, (ev_t, sl_t, _), _, _ = runs
     assert ts.map_interleave == 3 and ts.mapper.cfg.parallel_kf_refine
     assert ts.mapper.cfg.gba_views_per_iter == 4
     assert ev_t == ev_j and len(ev_t) == 2
@@ -103,6 +108,31 @@ def test_schedule_events_and_slices(runs):
                   "map_window", "map_polish", "map_update"):
         assert timing[stage]["calls"] > 0 and \
             np.isfinite(timing[stage]["mean_ms"]), stage
+
+
+def test_bench_accounting_against_jax(runs):
+    """``cut3r_slam_tpu_torch.bench``'s per-frame accounting on both
+    systems' runs: the same mapping events; the port's mapping frames
+    exceed JAX's by at most one an event, each such frame one whose only
+    slice finished a pending event (the port counts that slice, the JAX
+    ``step_mapper`` does not: test_step_mapper_counts_the_final_slice).
+    Here the finishing slice shares its frame with others, so the mapping
+    frames agree; tests/test_torch_bench.py::test_frame_accounting holds
+    the lone finishing slice."""
+    _, (_, _, acct_j), _, (_, _, acct_t), _, _ = runs
+    assert [a[0::2] for a in acct_t] == [a[0::2] for a in acct_j]
+    res_j = [frame_accounting(*a) for a in acct_j]
+    res_t = [frame_accounting(*a) for a in acct_t]
+    events = sum(d for _, d in res_t)
+    assert events == sum(d for _, d in res_j) >= 1
+    extra = [t for t, ((mt, _), (mj, _)) in enumerate(zip(res_t, res_j))
+             if mt != mj]
+    assert all(res_t[t][0] and not res_j[t][0] for t in extra)
+    assert len(extra) <= events
+    for t in extra:
+        has_viz, n_t, before, after = acct_t[t]
+        assert (has_viz, n_t, acct_j[t][1], before, after) == \
+            (False, 1, 0, True, False), (t, acct_t[t], acct_j[t])
 
 
 def test_schedule_written_back_state(runs):
