@@ -195,6 +195,22 @@ Phases (any failure exits nonzero, and no result line is printed):
    blend's as K1 does in phase 3 and, in the gradient of ``color.mean()``
    with cached bins, K2's packed cotangent with the plain VJP's on the
    same inputs channel by channel (below 5e-4 of the channel's max);
+15. the cached bin plan: on phase 14's micro-bench arena (2^17 Gaussians,
+   384x512) the render and the gradient of ``color.mean() +
+   0.1 depth.mean()`` through a ``compute_bin_plan`` (the plan's tile
+   order, the planned pack backward) on the card, against fresh bins and
+   cached bins without a plan on the card (maps within 1e-5; gradients
+   within 5e-4 of the parameter's max |grad|, the micro-bench's K2 bound;
+   the quaternions', zero up to rounding for the isotropic arena, within
+   5e-4 of the largest gradient of any parameter) and against the
+   planned render on the CPU (the colour as K1 against the plain blend
+   above; gradients within 5e-3 of their max, as K1 / K2 against the
+   plain versions feed them); the planned gather must run on the card and
+   K1 / K2 launch; the planned and cached-bins gradient times are
+   printed. Then the full-width CUT3R loads its state_dict through
+   ``cast_params_bf16`` and runs its bf16 forward over two frames:
+   finite, the same shapes, within 5e-2 of max |output| of the f32-stored
+   weights' forward;
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -3292,6 +3308,137 @@ def bench_phase(G, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the cached bin plan; bf16 weight storage
+# ---------------------------------------------------------------------------
+
+PLAN_MAPS = ("color", "alpha", "depth", "mdepth", "normal")
+
+
+def planned_grads(bench, device, names=("fresh", "cached", "planned")):
+    """The micro-bench arena's maps and gradients on ``device`` through
+    fresh bins, cached bins and cached bins with their plan, and the
+    callables that recompute each gradient."""
+    import torch
+    from cut3r_slam_tpu_torch.ops.gs_raster import compute_bin_plan
+    from cut3r_slam_tpu_torch.slam.renderer import bin_view, render_view
+    params, alive, w2c, K4, rcfg = bench.micro_scene(384, 512, 2 ** 17,
+                                                     device)
+    bins = bin_view(params, alive, w2c, K4, rcfg)
+    plan = compute_bin_plan(*bins, params["xyz"].shape[0], rcfg)
+    which = {"fresh": None, "cached": bins, "planned": bins + plan}
+
+    def grad(b):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        out = render_view(p, alive, w2c, K4, rcfg, bins=b)
+        loss = out["color"].mean() + 0.1 * out["depth"].mean()
+        g = torch.autograd.grad(loss, list(p.values()))
+        return {k: out[k].detach() for k in PLAN_MAPS}, dict(zip(p, g))
+
+    res = {n: grad(which[n]) for n in names}
+    return res, {n: (lambda b=which[n]: grad(b)) for n in names}
+
+
+def grad_errors(got, ref):
+    """max |err| / max |ref| per parameter; the quaternions' (zero up to
+    rounding on an isotropic arena) over the largest gradient of any
+    parameter."""
+    top = max(float(g.abs().max()) for g in ref.values())
+    return {k: float((got[k].cpu() - ref[k].cpu()).abs().max())
+            / (top if k == "quat" else max(float(ref[k].abs().max()), 1e-30))
+            for k in ref}
+
+
+def planned_bins_phase(G, card):
+    """Phase 15 (see the module docstring)."""
+    import torch
+    from cut3r_slam_tpu_torch import bench, full_f32
+    from cut3r_slam_tpu_torch.models import CUT3RConfig
+    from cut3r_slam_tpu_torch.models.convert import cast_params_bf16
+    from cut3r_slam_tpu_torch.models.cut3r import normalize_images
+    t_phase = time.perf_counter()
+    calls = []
+    planned = G._PlannedGather.apply
+    G._PlannedGather.apply = lambda *a: calls.append(a[0].device.type) \
+        or planned(*a)
+    try:
+        with full_f32():
+            for k in G.LAUNCHES:
+                G.LAUNCHES[k] = 0
+            res, fns = planned_grads(bench, "cuda")
+            launches = dict(G.LAUNCHES)
+            if calls != ["cuda"] or min(launches.values()) <= 0:
+                fail(f"phase 15: planned gather calls {calls}, launches "
+                     f"{launches}")
+            t_plan = cuda_ms(fns["planned"], 10)
+            t_cached = cuda_ms(fns["cached"], 10)
+            t_fresh = cuda_ms(fns["fresh"], 10)
+            cpu, _ = planned_grads(bench, "cpu", ("planned",))
+    finally:
+        G._PlannedGather.apply = planned
+    maps_p, g_p = res["planned"]
+    for ref in ("fresh", "cached"):
+        maps_r, g_r = res[ref]
+        e_map = max(float((maps_p[k] - maps_r[k]).abs().max())
+                    for k in PLAN_MAPS)
+        e_g = grad_errors(g_p, g_r)
+        log(f"[plan] planned vs {ref} bins on the card: maps max |err| "
+            f"{e_map:.3e}; gradients max err / max |ref| "
+            + ", ".join(f"{k} {v:.2e}" for k, v in e_g.items()))
+        if not e_map <= 1e-5 or not max(e_g.values()) <= 5e-4:
+            fail(f"phase 15: planned vs {ref} bins: maps {e_map:.3e}, "
+                 f"gradients {e_g}")
+    maps_c, g_c = cpu["planned"]
+    color, color_c = maps_p["color"].cpu(), maps_c["color"]
+    err = (color - color_c).abs()
+    frac = float((err > 1e-3 + 1e-3 * color_c.abs()).float().mean())
+    e_g = grad_errors(g_p, g_c)
+    log(f"[plan] planned, card vs CPU: colour max err {float(err.max()):.3e}"
+        f" (off fraction {frac:.1e}); gradients max err / max |ref| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in e_g.items()))
+    if frac > 1e-4 or float(err.max()) > 0.05 \
+            or not max(e_g.values()) <= 5e-3:
+        fail(f"phase 15: planned render card vs CPU: colour {frac:.2e} off,"
+             f" max {float(err.max())}; gradients {e_g}")
+    log(f"[plan] gradient at 2^17 Gaussians, 384x512: planned backward "
+        f"{t_plan:.3f} ms, cached bins {t_cached:.3f} ms, fresh bins "
+        f"{t_fresh:.3f} ms; launches {launches} | {card}")
+    del res, fns, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 weight storage: the full-width model loads the cast state_dict
+    model = plausible_random_cut3r(seed=0)
+    if model.cfg.compute_dtype != torch.bfloat16 \
+            or CUT3RConfig().compute_dtype != torch.bfloat16:
+        fail("phase 15: the full-width CUT3R does not compute in bf16")
+    frames = synth_frames(2, 384, 512)
+    imgs = normalize_images(torch.tensor(np.stack(frames),
+                                         device="cuda"))[:, None]
+    with torch.no_grad():
+        ref = model(imgs)
+        sd = cast_params_bf16(model.state_dict())
+        n_cast = sum(v.dtype == torch.bfloat16 for v in sd.values())
+        model.load_state_dict(sd, strict=True)
+        got = model(imgs)
+    errs = {}
+    for k, v in ref.items():
+        if not torch.is_floating_point(v):
+            continue
+        if got[k].shape != v.shape or not torch.isfinite(got[k]).all():
+            fail(f"phase 15: bf16-stored CUT3R output {k} not finite or "
+                 f"reshaped")
+        errs[k] = float((got[k].float() - v.float()).abs().max()
+                        / v.float().abs().max().clamp(min=1e-30))
+    log(f"[plan] CUT3R with {n_cast} of {len(sd)} tensors stored bf16: "
+        f"outputs max err / max |ref| vs f32 storage "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not max(errs.values()) <= 5e-2:
+        fail(f"phase 15: bf16-stored CUT3R outputs off: {errs}")
+    del model, ref, got, sd
+    log(f"[plan] phase 15 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_phases(G, card):
     """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
     scene, the staging-edge scene and at the mapping shape (V = 1 and 10,
@@ -3546,6 +3693,12 @@ def main():
     bench_launches = bench_phase(G, card)
 
     mark("phase 14")
+    # 15. the cached bin plan; bf16 weight storage ---------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    planned_bins_phase(G, card)
+
+    mark("phase 15")
 
     kernels = []
     for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),

@@ -1,7 +1,7 @@
 """Pointmap / pose utilities shared by tracking and mapping (port of
 ``cut3r_slam_tpu/geometry/pointmap.py``: ``geotrf``, ``depth_to_pointmap``,
 ``pointmap_to_depth``, ``depth_to_normal``, ``pose_vec_to_matrix``,
-``matrix_to_pose_vec``, ``umeyama_alignment``).
+``matrix_to_pose_vec``, ``umeyama_alignment``, ``log_depth_scale_align``).
 
 Pose vector convention at the SLAM layer: ``[t(3), quat xyzw]``
 camera-to-world.
@@ -15,7 +15,7 @@ from .lie import se3_from_matrix, se3_matrix
 
 __all__ = ["geotrf", "depth_to_pointmap", "pointmap_to_depth",
            "pose_vec_to_matrix", "matrix_to_pose_vec", "umeyama_alignment",
-           "depth_to_normal"]
+           "log_depth_scale_align", "depth_to_normal"]
 
 
 def geotrf(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -74,6 +74,19 @@ def umeyama_alignment(x: torch.Tensor, y: torch.Tensor,
     s = torch.trace(torch.diag(D) @ S) / torch.clamp(var_x, min=1e-12) \
         if with_scale else torch.ones((), dtype=x.dtype, device=x.device)
     return R, mu_y - s * R @ mu_x, s
+
+
+def log_depth_scale_align(depth_ref: torch.Tensor, depth_new: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Scale s = exp(mean(log d_ref - log d_new)) over the masked pixels
+    (a boolean or float validity map); 1 when fewer than 50 pixels are
+    valid."""
+    m = mask.to(depth_ref.dtype)
+    diff = (torch.log(torch.clamp(depth_ref, min=1e-6))
+            - torch.log(torch.clamp(depth_new, min=1e-6))) * m
+    cnt = m.sum()
+    s = torch.exp(diff.sum() / torch.clamp(cnt, min=1.0))
+    return torch.where(cnt < 50, torch.ones_like(s), s)
 
 
 def depth_to_normal(depth: torch.Tensor, intrinsics: torch.Tensor

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "omnidata_params_from_jax",
-           "droid_params_from_jax",
+           "droid_params_from_jax", "cast_params_bf16",
            "load_torch_checkpoint", "load_cut3r_checkpoint",
            "load_spann3r_checkpoint", "CKPT_SKIP", "SPANN3R_SKIP"]
 
@@ -212,6 +212,17 @@ def droid_params_from_jax(params) -> Dict[str, torch.Tensor]:
         sd[head.replace("/", ".") + "." + leaf] = torch.tensor(
             np.ascontiguousarray(val))
     return sd
+
+
+def cast_params_bf16(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A state_dict with every f32 tensor of two or more dimensions (the
+    weight matrices and kernels) cast to bf16 storage for inference; norm
+    scales, biases and every other tensor keep their dtype. A model loads
+    the result as usual (``load_state_dict`` copies into its own dtype),
+    with bf16-rounded weights."""
+    return {k: v.to(torch.bfloat16)
+            if v.dtype == torch.float32 and v.dim() >= 2 else v
+            for k, v in sd.items()}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -19,7 +19,7 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["RasterizeConfig", "rasterize", "compute_bins",
-           "quat_wxyz_to_matrix", "median_gate"]
+           "compute_bin_plan", "quat_wxyz_to_matrix", "median_gate"]
 
 TILE = 16
 ALPHA_MIN = 1.0 / 255.0
@@ -213,10 +213,14 @@ def _preprocess(means, quats, scales, opacities, K4, cfg: RasterizeConfig):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def _bin_gaussians(pre, cfg: RasterizeConfig):
+def _bin_gaussians(pre, cfg: RasterizeConfig, return_inverse: bool = False):
     """Duplicate-sort-range binning with static caps and the fused
     (tile | quantized depth) key. Returns per-tile entry indices
-    (n_tiles, max_per_tile) int64 and a validity mask."""
+    (n_tiles, max_per_tile) int64 and a validity mask. With
+    ``return_inverse`` also the inverse map (P, max_dup) int32: for
+    Gaussian p's d-th tile duplicate, the flat position
+    ``tile * max_per_tile + k`` it landed at, or -1 where it was culled or
+    fell beyond the per-tile cap."""
     mean2d = pre["mean2d"].detach()
     radius = pre["radius"].detach()
     valid = pre["valid"]
@@ -273,7 +277,19 @@ def _bin_gaussians(pre, cfg: RasterizeConfig):
     take = torch.clamp(starts[:, None] + k, 0, gidx_s.shape[0] - 1)
     in_range = k < counts[:, None]
     entry_gauss = torch.where(in_range, gidx_s[take], torch.zeros_like(take))
-    return entry_gauss, in_range
+    if not return_inverse:
+        return entry_gauss, in_range
+
+    # inverse permutation: pre-sort entry e sits at sorted position pos[e]
+    n_e = perm.shape[0]
+    pos = torch.empty_like(perm)
+    pos[perm] = torch.arange(n_e, device=dev)
+    starts_pad = torch.cat([starts, starts.new_zeros(1)])
+    k_e = pos - starts_pad[tile_flat]
+    ok = (tile_flat < cfg.n_tiles) & (k_e >= 0) & (k_e < cfg.max_per_tile)
+    inv = torch.where(ok, tile_flat * cfg.max_per_tile + k_e,
+                      torch.full_like(k_e, -1))
+    return entry_gauss, in_range, inv.to(torch.int32).reshape(P, cfg.max_dup)
 
 
 @torch.no_grad()
@@ -283,6 +299,51 @@ def compute_bins(means_cam, quats_wxyz, scales, opacities, K4,
     Returns (entry_gauss (n_tiles, K) int64, entry_mask (n_tiles, K) bool)."""
     pre = _preprocess(means_cam, quats_wxyz, scales, opacities, K4, cfg)
     return _bin_gaussians(pre, cfg)
+
+
+@torch.no_grad()
+def compute_bin_plan(entry_gauss, entry_mask, n_gauss: int,
+                     cfg: RasterizeConfig):
+    """The pack backward's segment-reduction plan for one cached binning,
+    built once and reused like the bins themselves.
+
+    The pack forward gathers ``raw[entry_gauss]``; its backward reduces
+    the entries' gradients onto their Gaussians. A permutation of the flat
+    entry positions grouped by Gaussian id, with each Gaussian's segment
+    bounds, turns that reduction into a gather and a sum over sorted
+    segments. The plan also fixes the occupancy-descending tile order for
+    the segment: the order only balances the blend's rows, it does not
+    change a result. Sorts are stable, so ties keep the JAX package's
+    order.
+
+    Returns (order, inv_order, perm, bounds):
+      order (n_tiles,)      occupancy-descending tile permutation
+      inv_order (n_tiles,)  its inverse
+      perm (n_tiles * K,)   int32 flat entry positions in the sorted-tile
+                            layout, grouped by Gaussian id, masked entries
+                            (the sentinel id ``n_gauss``) last
+      bounds (n_gauss + 1,) int32 segment bounds into ``perm``
+    """
+    counts = entry_mask.sum(1)
+    order = torch.argsort(-counts, stable=True)
+    inv_order = torch.argsort(order, stable=True)
+    flat_g = torch.where(entry_mask[order], entry_gauss[order],
+                         torch.full_like(entry_gauss, n_gauss)).reshape(-1)
+    perm = torch.argsort(flat_g, stable=True)
+    bounds = torch.searchsorted(
+        flat_g[perm], torch.arange(n_gauss + 1, device=flat_g.device,
+                                   dtype=flat_g.dtype))
+    return order, inv_order, perm.to(torch.int32), bounds.to(torch.int32)
+
+
+def check_bins(bins):
+    """``bins`` is None, cached (entry_gauss, entry_mask), or those with
+    a ``compute_bin_plan`` after them (6 items); anything else raises."""
+    if bins is not None and len(bins) not in (2, 6):
+        raise ValueError(f"bins: expected (entry_gauss, entry_mask) or those "
+                         f"plus (order, inv_order, perm, bounds) from "
+                         f"compute_bin_plan, got {len(bins)} items")
+    return bins
 
 
 # ---------------------------------------------------------------------------
@@ -420,10 +481,13 @@ def rasterize(means_cam, quats_wxyz, scales, opacities, colors, K4,
     frame: means_cam (P,3); quats_wxyz (P,4); scales (P,3); opacities (P,);
     colors (P,3); K4 = [fx, fy, cx, cy]. Returns H x W maps: color, alpha,
     depth, mdepth, coord, mcoord, normal, plus per-Gaussian radii and
-    visibility."""
+    visibility. ``bins``: cached (entry_gauss, entry_mask), optionally
+    followed by their ``compute_bin_plan``, which this blend does not
+    need (it fixes only the blend's row order and the pack backward)."""
     dev = means_cam.device
     if bg is None:
         bg = torch.zeros(3, dtype=means_cam.dtype, device=dev)
+    check_bins(bins)
     pre = _preprocess(means_cam, quats_wxyz, scales, opacities, K4, cfg)
     if means2d_probe is not None:
         pre["mean2d"] = pre["mean2d"] + means2d_probe

@@ -18,8 +18,10 @@ the launch in ``LAUNCHES``; for CPU tensors it runs the plain PyTorch
 version beside it (``blend_forward_plain`` / ``blend_backward_plain``, the
 autograd VJP of the plain forward). ``_BlendFn`` is the autograd Function
 over both. Everything around the blend (preprocess, binning, the
-occupancy sort, the pack gather, whose backward is torch's index_add, and
-the image-space maps) is plain PyTorch on either device.
+occupancy sort, the pack gather and the image-space maps) is plain PyTorch
+on either device. The pack gather's backward is torch's sort-based
+indexing backward, or, with a cached ``compute_bin_plan``, a sum over the
+plan's pre-sorted segments (``_PlannedGather``).
 
 Divergences from the Pallas kernel, both towards ``ops/gs_raster.rasterize``
 semantics: a pixel that stops at T_MIN stays stopped for the rest of the
@@ -35,7 +37,7 @@ import torch
 
 from .gs_raster import (RasterizeConfig, TILE, ALPHA_MIN, T_MIN,
                         NORMALIZE_EPS, median_gate, _preprocess,
-                        _bin_gaussians, _untile, _ray_norm)
+                        _bin_gaussians, _untile, _ray_norm, check_bins)
 
 __all__ = ["rasterize_cuda", "rasterize_cuda_forward", "rasterize_cuda_multi",
            "blend_forward", "blend_backward", "blend_forward_plain",
@@ -333,18 +335,71 @@ def _image_maps(Opx, dsum, mdep, T, bg, K4, cfg: RasterizeConfig):
 # render entries
 # ---------------------------------------------------------------------------
 
-def _pack_rows(pre, colors, entry_gauss, entry_mask, order, ox1, oy1):
+class _PlannedGather(torch.autograd.Function):
+    """raw (N, 16) -> raw[entry_gauss] (R, K, 16), whose backward sums the
+    entries' gradients over the segments of a cached ``compute_bin_plan``:
+    ``perm`` groups the flat entry positions by Gaussian id and ``bounds``
+    marks each Gaussian's segment, so the backward needs no index sort.
+    This is the JAX package's "segsum" reduction; its "cumsum" and "take"
+    modes compute the same sums (tests/test_gs_raster_pallas.py holds them
+    equal), so only this one is ported."""
+
+    @staticmethod
+    def forward(ctx, raw, entry_gauss, perm, bounds):
+        ctx.save_for_backward(perm, bounds)
+        ctx.n_rows = raw.shape[0]
+        return raw[entry_gauss]
+
+    @staticmethod
+    def backward(ctx, dG):
+        perm, bounds = ctx.saved_tensors
+        ds = dG.reshape(-1, dG.shape[-1])[perm.long()]
+        idx = torch.arange(ds.shape[0], device=ds.device, dtype=bounds.dtype)
+        # entry i belongs to the Gaussian p with bounds[p] <= i <
+        # bounds[p + 1]; the masked entries past bounds[-1] add nothing
+        seg = torch.searchsorted(bounds, idx, right=True) - 1
+        ds = torch.where((idx >= bounds[-1])[:, None],
+                         torch.zeros_like(ds), ds)
+        dRaw = ds.new_zeros(ctx.n_rows, ds.shape[1]).index_add_(
+            0, seg.clamp(max=ctx.n_rows - 1), ds)
+        return dRaw, None, None, None
+
+
+def _plan_flat(plan, P, nt, K):
+    """One (perm, bounds) over the V * n_tiles sorted rows from V stacked
+    per-view plans: view v's entries and Gaussians are offset by v's
+    block. A view's plan-masked entries sit between its last Gaussian's
+    segment and the next view's and carry zero gradient."""
+    _, _, perm_v, bounds_v = plan
+    V = perm_v.shape[0]
+    ntK = nt * K
+    off = torch.arange(V, device=perm_v.device, dtype=perm_v.dtype) * ntK
+    perm = (perm_v + off[:, None]).reshape(-1)
+    bounds = torch.cat([(bounds_v[:, :P] + off[:, None]).reshape(-1),
+                        (V - 1) * ntK + bounds_v[-1, P:]])
+    return perm, bounds
+
+
+def _pack_rows(pre, colors, entry_gauss, entry_mask, order, ox1, oy1,
+               plan=None):
     """Gather and pack the occupancy-sorted tile rows of one or more views.
     ``pre`` leaves are (V, P, ...); entry_gauss / entry_mask / order are
-    (V, n_tiles, K) / (V, n_tiles). Returns (A (V * n_tiles, K, 16),
-    extent (V * n_tiles,) int32) in the sorted row order."""
+    (V, n_tiles, K) / (V, n_tiles); ``plan``: V stacked
+    ``compute_bin_plan`` outputs whose order is ``order``. Returns
+    (A (V * n_tiles, K, 16), extent (V * n_tiles,) int32) in the sorted
+    row order."""
     V, P = pre["t_center"].shape[:2]
     nt, K = entry_gauss.shape[1:]
     voff = (torch.arange(V, device=entry_gauss.device) * P)[:, None, None]
     eg_s = torch.gather(entry_gauss, 1, order[..., None].expand(V, nt, K))
     em_s = torch.gather(entry_mask, 1, order[..., None].expand(V, nt, K))
     raw = _build_raw(pre, colors).reshape(V * P, NCH)
-    G = raw[(eg_s + voff).reshape(V * nt, K)]          # backward: index_add
+    eg_flat = (eg_s + voff).reshape(V * nt, K)
+    if plan is None:
+        # backward: torch's sort-based indexing backward
+        G = raw[eg_flat]
+    else:
+        G = _PlannedGather.apply(raw, eg_flat, *_plan_flat(plan, P, nt, K))
     A = _assemble_A(G, ox1[order].reshape(-1), oy1[order].reshape(-1),
                     em_s.reshape(V * nt, K))
     return A, _extent(em_s.reshape(V * nt, K))
@@ -353,7 +408,10 @@ def _pack_rows(pre, colors, entry_gauss, entry_mask, order, ox1, oy1):
 def _prepare(means_cam, quats_wxyz, scales, opacities, colors, K4,
              cfg: RasterizeConfig, means2d_probe, bins):
     """Preprocess, bin (or take cached bins), occupancy-sort and pack V
-    views; means_cam (V, P, 3). Returns (pre, A, extent, inv_order)."""
+    views; means_cam (V, P, 3). ``bins``: stacked (V, ...) cached
+    (entry_gauss, entry_mask), optionally followed by their plans, whose
+    tile order then replaces the fresh occupancy sort. Returns
+    (pre, A, extent, inv_order)."""
     dev = means_cam.device
     V = means_cam.shape[0]
     pre = _preprocess(means_cam, quats_wxyz, scales, opacities, K4, cfg)
@@ -365,18 +423,24 @@ def _prepare(means_cam, quats_wxyz, scales, opacities, colors, K4,
         entry_gauss = torch.stack([p[0] for p in per])
         entry_mask = torch.stack([p[1] for p in per])
     else:
-        entry_gauss, entry_mask = bins
+        entry_gauss, entry_mask = bins[0], bins[1]
         entry_mask = entry_mask & torch.gather(
             pre["valid"], 1, entry_gauss.reshape(V, -1)).reshape(
                 entry_gauss.shape)
-    # occupancy sort per view: busy tiles launch first (load balance only;
-    # every row blends independently)
-    counts = entry_mask.sum(2)
-    order = torch.argsort(-counts, dim=1, stable=True)
-    inv_order = torch.argsort(order, dim=1)
+    plan = None if bins is None or len(bins) == 2 else bins[2:]
+    if plan is None:
+        # occupancy sort per view: busy tiles launch first (load balance
+        # only; every row blends independently)
+        counts = entry_mask.sum(2)
+        order = torch.argsort(-counts, dim=1, stable=True)
+        inv_order = torch.argsort(order, dim=1)
+    else:
+        # the plan's order, fixed at bin time, keeps its permutation valid;
+        # the fresh validity above still masks entries
+        order, inv_order = plan[0].long(), plan[1].long()
     ox1, oy1 = _tile_origins(cfg, dev)
     A, extent = _pack_rows(pre, colors, entry_gauss, entry_mask, order,
-                           ox1, oy1)
+                           ox1, oy1, plan)
     return pre, A, extent, inv_order
 
 
@@ -421,16 +485,23 @@ def _single(maps):
     return {k: v[0] for k, v in maps.items()}
 
 
+def _batched(bins):
+    """One view's cached bins (and plan) with a leading view axis."""
+    check_bins(bins)
+    return None if bins is None else tuple(b[None] for b in bins)
+
+
 def rasterize_cuda(means_cam, quats_wxyz, scales, opacities, colors, K4,
                    cfg: RasterizeConfig, bg=None, means2d_probe=None,
                    bins=None) -> Dict[str, torch.Tensor]:
     """Differentiable one-view render through K1/K2 (plain blend on CPU).
     Outputs color, alpha, depth, mdepth, normal (H, W, ...) and per-Gaussian
     radii / visibility. ``bins``: cached (entry_gauss, entry_mask) from
-    ``compute_bins``; ``means2d_probe``: (P, 2) zeros whose gradient is the
-    viewspace positional gradient."""
+    ``compute_bins``, optionally followed by their ``compute_bin_plan``
+    (order, inv_order, perm, bounds); ``means2d_probe``: (P, 2) zeros whose
+    gradient is the viewspace positional gradient."""
     probe = None if means2d_probe is None else means2d_probe[None]
-    b = None if bins is None else (bins[0][None], bins[1][None])
+    b = _batched(bins)
     return _single(_rasterize_impl(
         means_cam[None], quats_wxyz[None], scales, opacities, colors, K4,
         cfg, bg, probe, b, differentiable=True))
@@ -439,8 +510,9 @@ def rasterize_cuda(means_cam, quats_wxyz, scales, opacities, colors, K4,
 def rasterize_cuda_forward(means_cam, quats_wxyz, scales, opacities, colors,
                            K4, cfg: RasterizeConfig, bg=None,
                            bins=None) -> Dict[str, torch.Tensor]:
-    """Forward-only one-view render (K1 without residuals)."""
-    b = None if bins is None else (bins[0][None], bins[1][None])
+    """Forward-only one-view render (K1 without residuals); ``bins`` as
+    ``rasterize_cuda`` takes them."""
+    b = _batched(bins)
     with torch.no_grad():
         return _single(_rasterize_impl(
             means_cam[None], quats_wxyz[None], scales, opacities, colors,
@@ -453,8 +525,9 @@ def rasterize_cuda_multi(means_cam, quats_wxyz, scales, opacities, colors,
     """Fused V-view render: ONE K1 (and ONE K2) launch over the V * n_tiles
     tile rows. means_cam (V, P, 3) / quats_wxyz (V, P, 4) per-view camera
     frame; scales / opacities / colors shared. ``bins``: stacked
-    (V, n_tiles, K); ``means2d_probe``: (V, P, 2). Outputs carry a leading
+    (V, n_tiles, K) cached bins, optionally followed by the V views'
+    stacked plans; ``means2d_probe``: (V, P, 2). Outputs carry a leading
     V axis."""
     return _rasterize_impl(means_cam, quats_wxyz, scales, opacities, colors,
-                           K4, cfg, bg, means2d_probe, bins,
+                           K4, cfg, bg, means2d_probe, check_bins(bins),
                            differentiable=True)

@@ -100,6 +100,13 @@ class KeyframeStore:
         self.submap_pts[submap_idx, slot0:slot0 + n] = pts
         self.submap_conf[submap_idx, slot0:slot0 + n] = conf
 
+    def normalize_scale(self, scale: float):
+        """Rescale every translation, depth and submap pointmap by
+        ``scale``."""
+        self.pose[:, :3] *= scale
+        self.depth *= scale
+        self.submap_pts *= scale
+
     @property
     def n_submaps(self) -> int:
         return max(0, (self.count + SUBMAP_SIZE - 1) // SUBMAP_SIZE)

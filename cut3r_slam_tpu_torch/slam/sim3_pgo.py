@@ -150,6 +150,22 @@ class Sim3PGO:
         for i, rel in enumerate(_relative(poses[:-1], poses[1:])):
             self.add_relative_se3(i, i + 1, rel, weight)
 
+    def loop_candidates(self, positions: np.ndarray, z_axes: np.ndarray,
+                        current: int, dist_thresh: float = 0.5,
+                        angle_thresh: float = 0.7,
+                        temporal_gap: int = 20) -> np.ndarray:
+        """Indices of the poses within ``dist_thresh`` of ``current``,
+        whose viewing axis is within ``angle_thresh`` (cosine) of its, and
+        more than ``temporal_gap`` indices away."""
+        d = np.linalg.norm(positions - positions[current], axis=1)
+        cos = (z_axes @ z_axes[current]) / np.maximum(
+            np.linalg.norm(z_axes, axis=1)
+            * np.linalg.norm(z_axes[current]), 1e-8)
+        idx = np.arange(len(positions))
+        m = (d < dist_thresh) & (cos > angle_thresh) \
+            & (np.abs(idx - current) > temporal_gap)
+        return idx[m]
+
     def solve(self, poses_se3: np.ndarray, iters: int = 10, fixed: int = 1,
               *, device) -> np.ndarray:
         """Refine absolute SE(3) poses (N, 7) on ``device``; returns (N, 8)

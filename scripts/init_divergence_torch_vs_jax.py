@@ -17,7 +17,9 @@ states never share memory:
     python scripts/init_divergence_torch_vs_jax.py --only torch --hw 224 224
     python scripts/init_divergence_torch_vs_jax.py --only jax --hw 224 224
 
-(without ``--only`` both run, one after the other). Each half writes
+(without ``--only`` both run, one after the other; ``--probe-loss`` only
+prints both packages' loss on pointmaps scaled up to f32 overflow, op by
+op and jitted for JAX). Each half writes
 ``<out>/<torch|jax>_<H>x<W>.json`` and prints it; the torch half writes
 the starting checkpoint and the batch that the JAX half reads into
 ``--work`` (``build/init_divergence/<H>x<W>``, ~3.2 GB at full width).
@@ -114,7 +116,9 @@ def jax_half(args, work):
         CUT3RConfig(), compute_dtype=jnp.float32))
     tx = JS.make_optimizer(**OPT)
     opt_state = tx.init(params)
-    step_fn = jax.jit(JS.make_train_step(model, tx))
+    # the step's inputs are donated: without that the old and the new
+    # params and AdamW moments (~16 GB at full width) live side by side
+    step_fn = jax.jit(JS.make_train_step(model, tx), donate_argnums=(0, 1))
 
     @jax.jit
     def probe(params):
@@ -144,6 +148,31 @@ def jax_half(args, work):
     return rows
 
 
+def probe_loss():
+    """Both packages' ``cut3r_total_loss`` on tests/test_torch_losses.py's
+    inputs with the pointmaps scaled by 10^k: the JAX loss op by op and
+    jitted, and the port's."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import torch
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    from cut3r_slam_tpu.train import losses as JL
+    from cut3r_slam_tpu_torch.train import losses as TL
+    from test_torch_losses import _inputs
+    for e in (3, 18, 19, 20, 21, 22, 26):
+        pred, gt = _inputs(3)
+        for k in ("pts3d_in_self_view", "pts3d_in_other_view"):
+            pred[k] = (pred[k] * 10.0 ** e).astype(np.float32)
+        j = [{k: jnp.asarray(v) for k, v in d.items()} for d in (pred, gt)]
+        t = [{k: torch.tensor(v) for k, v in d.items()} for d in (pred, gt)]
+        print(json.dumps({"scale": f"1e{e}",
+                          "jax_eager": float(JL.cut3r_total_loss(*j)[0]),
+                          "jax_jit": float(jax.jit(JL.cut3r_total_loss)(
+                              *j)[0]),
+                          "port": float(TL.cut3r_total_loss(*t)[0])}))
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--hw", type=int, nargs=2, default=[224, 224])
@@ -151,11 +180,17 @@ def main():
     p.add_argument("--only", choices=["torch", "jax"], default=None)
     p.add_argument("--tiny", action="store_true",
                    help="CUT3RConfig.tiny(): a quick rehearsal of the script")
+    p.add_argument("--probe-loss", action="store_true",
+                   help="only print both packages' loss on pointmaps "
+                        "scaled up to f32 overflow")
     p.add_argument("--out", default=os.path.join(ROOT, "outputs",
                                                  "init_divergence"))
     p.add_argument("--work", default=os.path.join(ROOT, "build",
                                                   "init_divergence"))
     args = p.parse_args()
+    if args.probe_loss:
+        probe_loss()
+        return
     work = os.path.join(args.work, f"{args.hw[0]}x{args.hw[1]}")
     os.makedirs(work, exist_ok=True)
     os.makedirs(args.out, exist_ok=True)

@@ -189,3 +189,26 @@ def test_find_opt_scaling(mode, views):
               lambda p1, p2, g1, g2, m1, m2: TL.find_opt_scaling(
                   g1, g2, p1, p2, fit_mode=mode, valid1=m1, valid2=m2),
               [p1, p2, g1, g2, m1, m2], 2)
+
+
+def test_overflowing_pointmaps_nan_as_in_jax_eager():
+    """Pointmaps past ~1e19 overflow the f32 squared norms of the
+    average-distance normalization. The port's loss is then NaN, as the JAX
+    loss is when its ops run one by one; the JAX loss jitted as one program
+    can return a finite number there, which XLA's rewrites leave, not the
+    arithmetic (scripts/init_divergence_torch_vs_jax.py --probe-loss). The
+    training from ``init_random`` reaches such pointmaps at its fifth step
+    in both packages. Below the overflow the two agree."""
+    for scale, finite in ((1e18, True), (1e21, False)):
+        pred, gt = _inputs(3)
+        for k in ("pts3d_in_self_view", "pts3d_in_other_view"):
+            pred[k] = (pred[k] * scale).astype(np.float32)
+        lj, _ = JL.cut3r_total_loss(
+            *[{k: jnp.asarray(v) for k, v in d.items()} for d in (pred, gt)])
+        lt, _ = TL.cut3r_total_loss(
+            *[{k: torch.tensor(v) for k, v in d.items()} for d in (pred, gt)])
+        assert bool(np.isfinite(float(lj))) == bool(torch.isfinite(lt)) \
+            == finite, scale
+        if finite:
+            _check(lt.numpy(), lj, f"loss at {scale:.0e}")
+
