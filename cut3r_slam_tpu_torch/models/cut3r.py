@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from .. import resolve_device
+from ..utils.profiling import span
 from .blocks import Block, DecoderBlock, LayerNorm, Linear, init_random
 from .heads import DPTPts3dPose, LinearPts3dPose
 from .patch_embed import PatchEmbed
@@ -202,10 +203,11 @@ class CUT3R(nn.Module):
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """img (B, H, W, 3) normalized to [-1, 1] -> tokens (B, N, D) f32,
         positions (B, N, 2). portrait_mask (B,) bool: ManyAR rows."""
-        x, pos = self.patch_embed(img, portrait_mask)
-        for blk in self.enc_blocks:
-            x = blk(x, pos)
-        return self.enc_norm(x), pos
+        with span("cut3r.encode"):
+            x, pos = self.patch_embed(img, portrait_mask)
+            for blk in self.enc_blocks:
+                x = blk(x, pos)
+            return self.enc_norm(x), pos
 
     def encode_ray_map(self, ray_map: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -276,18 +278,20 @@ class CUT3R(nn.Module):
                          reset=None):
         """The recurrence over views: (hooks stacked over V*B, carry)."""
         V, B = feat.shape[:2]
-        init_state, state_pos, init_mem = self.init_state(B)
-        state_feat, mem = (init_state, init_mem) if carry is None else carry
-        hooks = []
-        for v in range(V):
-            state_feat, mem, hl = self.decode_step(
-                state_feat, state_pos, mem, feat[v], pos[v],
-                (chunk_start + v) == 0, init_state, init_mem,
-                update=None if update is None else update[v],
-                reset=None if reset is None else reset[v])
-            hooks.append(hl)
-        stacked = [torch.cat([h[k] for h in hooks], 0) for k in range(4)]
-        return stacked, (state_feat, mem)
+        with span("cut3r.decode"):
+            init_state, state_pos, init_mem = self.init_state(B)
+            state_feat, mem = (init_state, init_mem) if carry is None \
+                else carry
+            hooks = []
+            for v in range(V):
+                state_feat, mem, hl = self.decode_step(
+                    state_feat, state_pos, mem, feat[v], pos[v],
+                    (chunk_start + v) == 0, init_state, init_mem,
+                    update=None if update is None else update[v],
+                    reset=None if reset is None else reset[v])
+                hooks.append(hl)
+            stacked = [torch.cat([h[k] for h in hooks], 0) for k in range(4)]
+            return stacked, (state_feat, mem)
 
     # ------------------------------------------------------------------
     # ray-map-conditioned single-view inference
@@ -328,8 +332,10 @@ class CUT3R(nn.Module):
         (V, B, ...) tensors, (state_feat, mem))."""
         V, B, N = feat.shape[:3]
         stacked, carry = self._decode_sequence(feat, pos, carry, chunk_start)
-        out = self.downstream_head(stacked, H, W, pos.reshape(V * B, N, 2),
-                                   outputs=head_outputs)
+        with span("cut3r.heads"):
+            out = self.downstream_head(stacked, H, W,
+                                       pos.reshape(V * B, N, 2),
+                                       outputs=head_outputs)
         out = {k: x.reshape((V, B) + x.shape[1:]) for k, x in out.items()}
         return out, carry
 
@@ -360,10 +366,13 @@ class CUT3R(nn.Module):
         stacked, state = self._decode_sequence(
             feat.reshape(V, B, N, -1), pos.reshape(V, B, N, 2), None, 0,
             update, reset)
-        out = self.downstream_head(stacked, H, W, pos, outputs=head_outputs)
+        with span("cut3r.heads"):
+            out = self.downstream_head(stacked, H, W, pos,
+                                       outputs=head_outputs)
+            if pmask is not None:
+                out_p = self.downstream_head(stacked, W, H, pos,
+                                             outputs=head_outputs)
         if pmask is not None:
-            out_p = self.downstream_head(stacked, W, H, pos,
-                                         outputs=head_outputs)
             for k, land in out.items():
                 port = out_p[k]
                 if port.dim() >= 3 and tuple(port.shape[1:3]) == (W, H):

@@ -35,6 +35,7 @@ from typing import Dict
 
 import torch
 
+from ..utils.profiling import count, span
 from .gs_raster import (RasterizeConfig, TILE, ALPHA_MIN, T_MIN,
                         NORMALIZE_EPS, median_gate, _preprocess,
                         _bin_gaussians, _untile, _ray_norm, check_bins)
@@ -240,9 +241,10 @@ class _BlendFn(torch.autograd.Function):
             gO = torch.zeros(A.shape[0], PX, NOUT, device=A.device)
         gd, gmd, gT = [torch.zeros_like(tleft) if g is None else g
                        for g in (gd, gmd, gT)]
-        dA = blend_backward(A, extent, tchk, tleft, gO.contiguous(),
-                            gd.contiguous(), gmd.contiguous(),
-                            gT.contiguous())
+        with span("raster.blend_bwd"):
+            dA = blend_backward(A, extent, tchk, tleft, gO.contiguous(),
+                                gd.contiguous(), gmd.contiguous(),
+                                gT.contiguous())
         return dA, None
 
 
@@ -353,15 +355,17 @@ class _PlannedGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dG):
         perm, bounds = ctx.saved_tensors
-        ds = dG.reshape(-1, dG.shape[-1])[perm.long()]
-        idx = torch.arange(ds.shape[0], device=ds.device, dtype=bounds.dtype)
-        # entry i belongs to the Gaussian p with bounds[p] <= i <
-        # bounds[p + 1]; the masked entries past bounds[-1] add nothing
-        seg = torch.searchsorted(bounds, idx, right=True) - 1
-        ds = torch.where((idx >= bounds[-1])[:, None],
-                         torch.zeros_like(ds), ds)
-        dRaw = ds.new_zeros(ctx.n_rows, ds.shape[1]).index_add_(
-            0, seg.clamp(max=ctx.n_rows - 1), ds)
+        with span("raster.pack_bwd"):
+            ds = dG.reshape(-1, dG.shape[-1])[perm.long()]
+            idx = torch.arange(ds.shape[0], device=ds.device,
+                               dtype=bounds.dtype)
+            # entry i belongs to the Gaussian p with bounds[p] <= i <
+            # bounds[p + 1]; the masked entries past bounds[-1] add nothing
+            seg = torch.searchsorted(bounds, idx, right=True) - 1
+            ds = torch.where((idx >= bounds[-1])[:, None],
+                             torch.zeros_like(ds), ds)
+            dRaw = ds.new_zeros(ctx.n_rows, ds.shape[1]).index_add_(
+                0, seg.clamp(max=ctx.n_rows - 1), ds)
         return dRaw, None, None, None
 
 
@@ -387,7 +391,9 @@ def _pack_rows(pre, colors, entry_gauss, entry_mask, order, ox1, oy1,
     (V, n_tiles, K) / (V, n_tiles); ``plan``: V stacked
     ``compute_bin_plan`` outputs whose order is ``order``. Returns
     (A (V * n_tiles, K, 16), extent (V * n_tiles,) int32) in the sorted
-    row order."""
+    row order. Counts the views by the gather's backward:
+    ``render.views.planned`` (``_PlannedGather``), ``render.views.sorted``
+    (torch's sort-based indexing backward) or ``render.views.nograd``."""
     V, P = pre["t_center"].shape[:2]
     nt, K = entry_gauss.shape[1:]
     voff = (torch.arange(V, device=entry_gauss.device) * P)[:, None, None]
@@ -395,11 +401,14 @@ def _pack_rows(pre, colors, entry_gauss, entry_mask, order, ox1, oy1,
     em_s = torch.gather(entry_mask, 1, order[..., None].expand(V, nt, K))
     raw = _build_raw(pre, colors).reshape(V * P, NCH)
     eg_flat = (eg_s + voff).reshape(V * nt, K)
-    if plan is None:
-        # backward: torch's sort-based indexing backward
-        G = raw[eg_flat]
-    else:
+    if plan is not None and raw.requires_grad:
+        count("render.views.planned", V)
         G = _PlannedGather.apply(raw, eg_flat, *_plan_flat(plan, P, nt, K))
+    else:
+        # backward, if any: torch's sort-based indexing backward
+        count("render.views.sorted" if raw.requires_grad
+              else "render.views.nograd", V)
+        G = raw[eg_flat]
     A = _assemble_A(G, ox1[order].reshape(-1), oy1[order].reshape(-1),
                     em_s.reshape(V * nt, K))
     return A, _extent(em_s.reshape(V * nt, K))
@@ -414,14 +423,16 @@ def _prepare(means_cam, quats_wxyz, scales, opacities, colors, K4,
     (pre, A, extent, inv_order)."""
     dev = means_cam.device
     V = means_cam.shape[0]
-    pre = _preprocess(means_cam, quats_wxyz, scales, opacities, K4, cfg)
-    if means2d_probe is not None:
-        pre["mean2d"] = pre["mean2d"] + means2d_probe
+    with span("raster.preprocess"):
+        pre = _preprocess(means_cam, quats_wxyz, scales, opacities, K4, cfg)
+        if means2d_probe is not None:
+            pre["mean2d"] = pre["mean2d"] + means2d_probe
     if bins is None:
-        per = [_bin_gaussians({k: v[i] for k, v in pre.items()}, cfg)
-               for i in range(V)]
-        entry_gauss = torch.stack([p[0] for p in per])
-        entry_mask = torch.stack([p[1] for p in per])
+        with span("raster.bin"):
+            per = [_bin_gaussians({k: v[i] for k, v in pre.items()}, cfg)
+                   for i in range(V)]
+            entry_gauss = torch.stack([p[0] for p in per])
+            entry_mask = torch.stack([p[1] for p in per])
     else:
         entry_gauss, entry_mask = bins[0], bins[1]
         entry_mask = entry_mask & torch.gather(
@@ -439,8 +450,9 @@ def _prepare(means_cam, quats_wxyz, scales, opacities, colors, K4,
         # the fresh validity above still masks entries
         order, inv_order = plan[0].long(), plan[1].long()
     ox1, oy1 = _tile_origins(cfg, dev)
-    A, extent = _pack_rows(pre, colors, entry_gauss, entry_mask, order,
-                           ox1, oy1, plan)
+    with span("raster.pack"):
+        A, extent = _pack_rows(pre, colors, entry_gauss, entry_mask, order,
+                               ox1, oy1, plan)
     return pre, A, extent, inv_order
 
 
@@ -466,7 +478,8 @@ def _rasterize_impl(means_cam, quats_wxyz, scales, opacities, colors, K4,
     pre, A, extent, inv_order = _prepare(
         means_cam, quats_wxyz, scales, opacities, colors, K4, cfg,
         means2d_probe, bins)
-    O, dsum, mdep, T = _blend(A, extent, differentiable)
+    with span("raster.blend"):
+        O, dsum, mdep, T = _blend(A, extent, differentiable)
     unperm = (inv_order + (torch.arange(V, device=dev) * nt)[:, None]
               ).reshape(-1)
     O = O[unperm].reshape(V, nt, PX, NOUT)

@@ -53,7 +53,7 @@ import torch
 from .. import full_f32, resolve_device
 from ..ops.gs_raster import RasterizeConfig
 from ..ops.ssim import ssim
-from ..utils.profiling import timed
+from ..utils.profiling import attach, span, timed
 from ..geometry.lie import se3_matrix
 from ..geometry.pointmap import depth_to_normal, depth_to_pointmap
 from ..geometry.quaternion import (matrix_to_quat, quat_normalize,
@@ -153,6 +153,14 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
     return t.detach().clone().requires_grad_(True)
 
 
+def _iterations(n: int):
+    """``range(n)``, each optimization iteration inside a ``map.iter``
+    span."""
+    for i in range(n):
+        with span("map.iter"):
+            yield i
+
+
 class MappingBackend:
     def __init__(self, cfg: MappingConfig, K4: np.ndarray, device="cuda",
                  seed: int = 0, mesh=None):
@@ -167,7 +175,7 @@ class MappingBackend:
             height=cfg.height, width=cfg.width,
             max_per_tile=cfg.max_per_tile, kernel_size=cfg.kernel_size)
         self.rng_seed = int(seed)
-        self.timer = None  # optional utils.profiling.StageTimer
+        self._timer = None  # optional utils.profiling.StageTimer
         self.reset_state()
         self.mesh = None
         if mesh is not None:
@@ -196,6 +204,17 @@ class MappingBackend:
         self.gen = torch.Generator().manual_seed(self.rng_seed)
 
     # ------------------------------------------------------------------
+    @property
+    def timer(self):
+        return self._timer
+
+    @timer.setter
+    def timer(self, timer):
+        """Assigning a timer (or None) also attaches it to the process
+        (``utils.profiling.attach``): the program's spans go to it."""
+        self._timer = timer
+        attach(timer)
+
     def _tm(self, stage: str):
         """Stage timer of ``run_steps``' phases, synchronized on exit (a
         null context without ``self.timer``)."""
@@ -307,21 +326,28 @@ class MappingBackend:
         seg = max(1, min(cfg.opt_segment, cfg.pose_refine_iters))
         n_seg = -(-cfg.pose_refine_iters // seg)
         for _ in range(n_seg):
-            bins = bin_window(params, alive, w2cs, K4, rcfg,
-                              trans_deltas=deltas["t"],
-                              rot_deltas=deltas["r"])
-            for _ in range(seg):
+            for i in _iterations(seg):
+                if i == 0:    # the segment's binning, in its first iteration
+                    with span("map.bin"):
+                        bins = bin_window(params, alive, w2cs, K4, rcfg,
+                                          trans_deltas=deltas["t"],
+                                          rot_deltas=deltas["r"])
                 dt, dr = _leaf(deltas["t"]), _leaf(deltas["r"])
-                outs = render_window(params, alive, w2cs, K4, rcfg,
-                                     trans_deltas=dt, rot_deltas=dr,
-                                     bins=bins)
-                loss = self._pose_losses(outs, images, depth_gts, dt,
-                                         dr).sum()
-                gt_, gr_ = torch.autograd.grad(loss, (dt, dr))
-                adam.step(deltas, {"t": gt_, "r": gr_}, lrs)
+                with span("map.render"):
+                    outs = render_window(params, alive, w2cs, K4, rcfg,
+                                         trans_deltas=dt, rot_deltas=dr,
+                                         bins=bins)
+                with span("map.loss"):
+                    loss = self._pose_losses(outs, images, depth_gts, dt,
+                                             dr).sum()
+                with span("map.backward"):
+                    gt_, gr_ = torch.autograd.grad(loss, (dt, dr))
+                with span("map.adam"):
+                    adam.step(deltas, {"t": gt_, "r": gr_}, lrs)
         with torch.no_grad():
             new_w2c = se3_delta_to_matrix(deltas["t"], deltas["r"]) @ w2cs
-            outs = render_window(params, alive, new_w2c, K4, rcfg)
+            with span("map.render"):
+                outs = render_window(params, alive, new_w2c, K4, rcfg)
             gt_scaled, pointmaps, valids = self._rescale_and_unproject(
                 outs, depth_gts, new_w2c)
             self.cams.w2c[ki] = new_w2c
@@ -391,18 +417,20 @@ class MappingBackend:
         """The weighted SUM of the views' losses (a view-parallel rank
         sums its own views; the ranks' sums add up to the window's)."""
         cfg = self.cfg
-        outs = render_window(params, alive, w2c, self.K4, self.raster_cfg,
-                             trans_deltas=pd["t"], rot_deltas=pd["r"],
-                             bins=bins)
-        img = torch.einsum("vhwi,vij->vhwj", outs["color"], ex["a"]) \
-            + ex["b"][:, None, None, :]
-        rgb_l = self._rgb_terms(img, images)
-        depth_l, norm_l, _, _ = self._depth_terms(outs["depth"], depths_gt,
-                                                  gdns)
-        iso = self._iso_terms(params, outs["visibility"])
-        losses = (rgb_l + cfg.lambda_depth * depth_l
-                  + cfg.lambda_normal * norm_l + cfg.lambda_iso * iso)
-        return (losses * weights).sum()
+        with span("map.render"):
+            outs = render_window(params, alive, w2c, self.K4,
+                                 self.raster_cfg, trans_deltas=pd["t"],
+                                 rot_deltas=pd["r"], bins=bins)
+        with span("map.loss"):
+            img = torch.einsum("vhwi,vij->vhwj", outs["color"], ex["a"]) \
+                + ex["b"][:, None, None, :]
+            rgb_l = self._rgb_terms(img, images)
+            depth_l, norm_l, _, _ = self._depth_terms(outs["depth"],
+                                                      depths_gt, gdns)
+            iso = self._iso_terms(params, outs["visibility"])
+            losses = (rgb_l + cfg.lambda_depth * depth_l
+                      + cfg.lambda_normal * norm_l + cfg.lambda_iso * iso)
+            return (losses * weights).sum()
 
     def optimization(self, iters: int, window: List[int],
                      optimize_pose: bool = True):
@@ -448,10 +476,12 @@ class MappingBackend:
                 exposure = {"a": self.cams.exposure_a[idx].clone(),
                             "b": self.cams.exposure_b[idx].clone()}
                 bins = gdns = None
-                if V:   # a view-parallel rank may hold no view
-                    bins = bin_window(params, alive, w2c, K4, rcfg)
-                    gdns = depth_to_normal(depths_gt, K4)
-                for _ in range(seg):
+                for i in _iterations(seg):
+                    # a view-parallel rank may hold no view
+                    if i == 0 and V:
+                        with span("map.bin"):
+                            bins = bin_window(params, alive, w2c, K4, rcfg)
+                        gdns = depth_to_normal(depths_gt, K4)
                     p = {k: _leaf(v) for k, v in params.items()}
                     if optimize_pose:
                         pd = {"t": _leaf(zeros), "r": _leaf(zeros)}
@@ -466,21 +496,26 @@ class MappingBackend:
                         leaves += [pd["t"], pd["r"], ex["a"], ex["b"]]
                     if shards is None:
                         loss_t = self._window_loss(*args)
-                        grads = torch.autograd.grad(loss_t, leaves)
+                        with span("map.backward"):
+                            grads = torch.autograd.grad(loss_t, leaves)
                     else:
                         loss_t, grads = shards.window_value_and_grad(
                             self._window_loss_raw, args, leaves, weights)
-                    gp = _mask_grads(dict(zip(PARAM_KEYS, grads[:5])), alive)
-                    adam_b.step(params, gp, self._lrs())
-                    if optimize_pose:
-                        deltas = {"t": zeros.clone(), "r": zeros.clone()}
-                        pd_adam.step(deltas, {"t": grads[5], "r": grads[6]},
-                                     lrs_pd)
-                        with torch.no_grad():
-                            w2c = se3_delta_to_matrix(deltas["t"],
-                                                      deltas["r"]) @ w2c
-                        ex_adam.step(exposure, {"a": grads[7], "b": grads[8]},
-                                     lrs_ex)
+                    with span("map.adam"):
+                        gp = _mask_grads(dict(zip(PARAM_KEYS, grads[:5])),
+                                         alive)
+                        adam_b.step(params, gp, self._lrs())
+                        if optimize_pose:
+                            deltas = {"t": zeros.clone(), "r": zeros.clone()}
+                            pd_adam.step(deltas,
+                                         {"t": grads[5], "r": grads[6]},
+                                         lrs_pd)
+                            with torch.no_grad():
+                                w2c = se3_delta_to_matrix(deltas["t"],
+                                                          deltas["r"]) @ w2c
+                            ex_adam.step(exposure,
+                                         {"a": grads[7], "b": grads[8]},
+                                         lrs_ex)
                     loss = loss_t.detach()
             self.adam.t = adam_b.t
             if optimize_pose:
@@ -518,23 +553,26 @@ class MappingBackend:
               "a": _leaf(expa_all[vi_batch]), "b": _leaf(expb_all[vi_batch])}
         probe = _leaf(torch.zeros(k, P, 2, device=self.device))
         p = {kk: _leaf(v) for kk, v in params.items()}
-        outs = render_window(p, alive, w2cs, self.K4, self.raster_cfg,
-                             trans_deltas=pe["t"], rot_deltas=pe["r"],
-                             means2d_probe=probe)
-        img = torch.einsum("vhwi,vij->vhwj", outs["color"], pe["a"]) \
-            + pe["b"][:, None, None, :]
-        rgb_l = self._rgb_terms(img, images)
-        depth_l, norm_l, dmask, cnt = self._depth_terms(outs["depth"],
-                                                        depth_gt, gdns)
-        rn_l = ((1 - (outs["normal"] * gdns).sum(-1)) * dmask).flatten(1) \
-            .sum(1) / cnt
-        vis = outs["visibility"]
-        iso = self._iso_terms(p, vis)
-        losses = (rgb_l + cfg.lambda_depth / 10 * depth_l
-                  + cfg.lambda_normal * (norm_l + rn_l)
-                  + cfg.lambda_iso * iso)
+        with span("map.render"):
+            outs = render_window(p, alive, w2cs, self.K4, self.raster_cfg,
+                                 trans_deltas=pe["t"], rot_deltas=pe["r"],
+                                 means2d_probe=probe)
+        with span("map.loss"):
+            img = torch.einsum("vhwi,vij->vhwj", outs["color"], pe["a"]) \
+                + pe["b"][:, None, None, :]
+            rgb_l = self._rgb_terms(img, images)
+            depth_l, norm_l, dmask, cnt = self._depth_terms(outs["depth"],
+                                                            depth_gt, gdns)
+            rn_l = ((1 - (outs["normal"] * gdns).sum(-1)) * dmask) \
+                .flatten(1).sum(1) / cnt
+            vis = outs["visibility"]
+            iso = self._iso_terms(p, vis)
+            losses = (rgb_l + cfg.lambda_depth / 10 * depth_l
+                      + cfg.lambda_normal * (norm_l + rn_l)
+                      + cfg.lambda_iso * iso)
         leaves = list(p.values()) + [probe] + list(pe.values())
-        grads = torch.autograd.grad(losses.sum(), leaves)
+        with span("map.backward"):
+            grads = torch.autograd.grad(losses.sum(), leaves)
         with torch.no_grad():
             gp = _mask_grads(dict(zip(PARAM_KEYS, grads[:5])), alive)
             gprobe = torch.where(alive[None, :, None], grads[5],
@@ -574,40 +612,45 @@ class MappingBackend:
         expb_all = self.cams.exposure_b.clone()
         losses = []
         for vi in view_idx:
-            bins = bin_window(params, alive, w2c_all[vi], K4, rcfg) \
-                if m_iters > 1 else None
-            gdns = depth_to_normal(self._depth(vi), K4)
-            for _ in range(m_iters):
+            for i in _iterations(m_iters):
+                if i == 0:    # the block's binning, in its first step
+                    bins = None
+                    if m_iters > 1:
+                        with span("map.bin"):
+                            bins = bin_window(params, alive, w2c_all[vi], K4,
+                                              rcfg)
+                    gdns = depth_to_normal(self._depth(vi), K4)
                 with torch.enable_grad():
                     l, gp_sum, ga_c, den_c, mr_c, gpes, w2cs = \
                         self._gba_batch(params, alive, w2c_all, expa_all,
                                         expb_all, vi, gdns, bins)
-                adam_b.step(params, {k: g / k_batch
-                                     for k, g in gp_sum.items()},
-                            self._lrs())
-                # per-view Adam on pose delta + exposure (the batch's views
-                # are distinct, so the row updates do not collide)
-                t_vi = pv_t[vi] + 1
-                bc1 = 1 - 0.9 ** t_vi.float()
-                bc2 = 1 - 0.999 ** t_vi.float()
-                pose_exp = {"t": torch.zeros(k_batch, 3, device=dev),
-                            "r": torch.zeros(k_batch, 3, device=dev),
-                            "a": expa_all[vi], "b": expb_all[vi]}
-                new_pe = {}
-                for k in pose_exp:
-                    ex = (1,) * (gpes[k].dim() - 1)
-                    mk = 0.9 * pv_m[k][vi] + 0.1 * gpes[k]
-                    vk = 0.999 * pv_v[k][vi] + 0.001 * gpes[k] ** 2
-                    pv_m[k][vi] = mk
-                    pv_v[k][vi] = vk
-                    new_pe[k] = pose_exp[k] - lrs_pe[k] \
-                        * (mk / bc1.reshape((-1,) + ex)) \
-                        / (torch.sqrt(vk / bc2.reshape((-1,) + ex)) + 1e-8)
-                pv_t[vi] = t_vi
-                w2c_all[vi] = se3_delta_to_matrix(new_pe["t"],
-                                                  new_pe["r"]) @ w2cs
-                expa_all[vi] = new_pe["a"]
-                expb_all[vi] = new_pe["b"]
+                with span("map.adam"):
+                    adam_b.step(params, {k: g / k_batch
+                                         for k, g in gp_sum.items()},
+                                self._lrs())
+                    # per-view Adam on pose delta + exposure (the batch's
+                    # views are distinct, so the row updates do not collide)
+                    t_vi = pv_t[vi] + 1
+                    bc1 = 1 - 0.9 ** t_vi.float()
+                    bc2 = 1 - 0.999 ** t_vi.float()
+                    pose_exp = {"t": torch.zeros(k_batch, 3, device=dev),
+                                "r": torch.zeros(k_batch, 3, device=dev),
+                                "a": expa_all[vi], "b": expb_all[vi]}
+                    new_pe = {}
+                    for k in pose_exp:
+                        ex = (-1,) + (1,) * (gpes[k].dim() - 1)
+                        mk = 0.9 * pv_m[k][vi] + 0.1 * gpes[k]
+                        vk = 0.999 * pv_v[k][vi] + 0.001 * gpes[k] ** 2
+                        pv_m[k][vi] = mk
+                        pv_v[k][vi] = vk
+                        new_pe[k] = pose_exp[k] - lrs_pe[k] \
+                            * (mk / bc1.reshape(ex)) \
+                            / (torch.sqrt(vk / bc2.reshape(ex)) + 1e-8)
+                    pv_t[vi] = t_vi
+                    w2c_all[vi] = se3_delta_to_matrix(new_pe["t"],
+                                                      new_pe["r"]) @ w2cs
+                    expa_all[vi] = new_pe["a"]
+                    expb_all[vi] = new_pe["b"]
                 arena_b.grad_accum.add_(ga_c)
                 arena_b.grad_accum_abs.add_(ga_c)
                 arena_b.denom.add_(den_c)
@@ -699,7 +742,9 @@ class MappingBackend:
         ds, cs = [], []
         for vi in window:
             w2c = self.cams.w2c[vi]
-            out = render_view(params, alive, w2c, self.K4, self.raster_cfg)
+            with span("map.render"):
+                out = render_view(params, alive, w2c, self.K4,
+                                  self.raster_cfg)
             d, a = out["depth"], out["alpha"]
             gt = self._depth(vi)
             vmask = (d > 1e-3) & (gt > 1e-3) & (a > 0.9)

@@ -58,7 +58,7 @@ from ..models.priors import PriorNet, normalize_imagenet
 from ..geometry.lie import se3_from_matrix, se3_matrix
 from ..geometry.pointmap import pose_vec_to_matrix
 from ..utils.image import CompressedFrameStore
-from ..utils.profiling import timed
+from ..utils.profiling import attach, timed
 from .keyframe import KeyframeStore, SUBMAP_SIZE
 from .motion_filter import MotionFilter
 from .factor_graph import FactorGraph
@@ -178,7 +178,7 @@ class SLAMSystem:
         self.map_interleave = int(mcfg.get("interleave", 0))
         self._map_gen = None
         self.frame_map_slices = 0  # mapping slices run in the last frame
-        self.timer = None  # optional utils.profiling.StageTimer
+        self._timer = None  # optional utils.profiling.StageTimer
         self.output_dir = output_dir
         self.mapping_iters = mcfg.get("iterations", 100)
         self.finalize_iters = cfg.get("opt_params", {}).get(
@@ -205,6 +205,17 @@ class SLAMSystem:
             np.asarray(K4_map, np.float32), device=self.device,
             mesh=self.mesh)
         self.mapper.timer = self.timer
+
+    @property
+    def timer(self):
+        return self._timer
+
+    @timer.setter
+    def timer(self, timer):
+        """Assigning a timer (or None) also attaches it to the process
+        (``utils.profiling.attach``): the program's spans go to it."""
+        self._timer = timer
+        attach(timer)
 
     def _tm(self, stage: str):
         return timed(self.timer, stage, self.device)

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..models.cut3r import HEAD_OUTPUTS
+from ..utils.profiling import span
 from .losses import cut3r_total_loss
 
 __all__ = ["AdamW", "lr_at", "make_optimizer", "init_trainable",
@@ -312,10 +313,14 @@ def make_train_step(model, opt: AdamW, dp_group=None
     def train_step(batch):
         batch = to_device(batch, model.device)
         opt.zero_grad(set_to_none=True)
-        pred = model(batch["imgs"], true_shape=batch.get("true_shape"))
-        loss, aux = cut3r_total_loss(pred, _gt(batch), group=dp_group)
-        loss.backward()
-        opt.step()
+        with span("train.forward"):
+            pred = model(batch["imgs"], true_shape=batch.get("true_shape"))
+        with span("train.loss"):
+            loss, aux = cut3r_total_loss(pred, _gt(batch), group=dp_group)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            opt.step()
         return _whole_batch(aux, dp_group)
 
     return train_step
@@ -336,27 +341,32 @@ def make_tbptt_train_step(model, opt: AdamW, chunk: int = 4,
         imgs = batch["imgs"]
         V, B, H, W, _ = imgs.shape
         opt.zero_grad(set_to_none=True)
-        with torch.no_grad():
-            feat, pos = model.encode_image(imgs.reshape(V * B, H, W, 3))
-        feat = feat.reshape(V, B, *feat.shape[1:])
-        pos = pos.reshape(V, B, *pos.shape[1:])
-        n_chunks = (V + chunk - 1) // chunk
-        carry, total, n_loss = None, 0.0, 0
-        for c in range(n_chunks):
-            s, e = c * chunk, min((c + 1) * chunk, V)
-            with_grad = c >= n_chunks - grad_chunks
-            with torch.set_grad_enabled(with_grad):
-                out, carry = model.decode_views(
-                    feat[s:e], pos[s:e], H, W, carry, s,
-                    head_outputs=HEAD_OUTPUTS if with_grad else ())
-                if with_grad:
-                    total = total + cut3r_total_loss(
-                        out, _gt(batch, s, e), group=dp_group)[0]
-                    n_loss += 1
-            carry = tuple(x.detach() for x in carry)
-        loss = total / max(n_loss, 1)
-        loss.backward()
-        opt.step()
+        # each chunk's loss (``train.loss``) lies inside the forward
+        with span("train.forward"):
+            with torch.no_grad():
+                feat, pos = model.encode_image(imgs.reshape(V * B, H, W, 3))
+            feat = feat.reshape(V, B, *feat.shape[1:])
+            pos = pos.reshape(V, B, *pos.shape[1:])
+            n_chunks = (V + chunk - 1) // chunk
+            carry, total, n_loss = None, 0.0, 0
+            for c in range(n_chunks):
+                s, e = c * chunk, min((c + 1) * chunk, V)
+                with_grad = c >= n_chunks - grad_chunks
+                with torch.set_grad_enabled(with_grad):
+                    out, carry = model.decode_views(
+                        feat[s:e], pos[s:e], H, W, carry, s,
+                        head_outputs=HEAD_OUTPUTS if with_grad else ())
+                    if with_grad:
+                        with span("train.loss"):
+                            total = total + cut3r_total_loss(
+                                out, _gt(batch, s, e), group=dp_group)[0]
+                        n_loss += 1
+                carry = tuple(x.detach() for x in carry)
+            loss = total / max(n_loss, 1)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            opt.step()
         return _whole_batch({"total": loss}, dp_group)
 
     return train_step

@@ -1,34 +1,92 @@
 """Tracing / profiling helpers (port of ``cut3r_slam_tpu/utils/
-profiling.py``): per-stage wall-clock timers with the same JSON export,
-and a ``torch.profiler`` trace context for a device timeline."""
+profiling.py``): the program's one tracer.
+
+A timer is any callable ``timer(stage)`` that returns a context manager
+(``StageTimer`` here; the benchmark's ``port_bench.trace.Spans`` too).
+One timer at a time is attached to the process (``attach``); the
+program's spans (``span``) and counters (``count``) go to it. With
+nothing attached both return at once: no allocation, no clock, no torch.
+``StageTimer`` also opens a ``torch.profiler.record_function`` range per
+span, so under a profiler the spans lie on the trace's own clock.
+
+The program's spans are named ``<layer>.<what>`` (``map.iter``,
+``raster.blend``, ``cut3r.decode``, ``train.backward``) and never
+synchronize. ``timed`` is the one span that does, for the SLAM system's
+and the mapper's ten stages (``SLAMSystem._tm``, ``MappingBackend._tm``:
+``filter``, ``frontend``, ``mapping``, ``map_window``...)."""
 from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Optional
 
-__all__ = ["StageTimer", "timed", "trace"]
+__all__ = ["StageTimer", "timed", "attach", "span", "count"]
+
+_NOOP = contextlib.nullcontext()
+_timer = None
+
+
+def attach(timer):
+    """Make ``timer`` (or None) the process's timer; returns the one it
+    replaces."""
+    global _timer
+    prev, _timer = _timer, timer
+    return prev
+
+
+def span(name: str):
+    """``timer(name)`` of the attached timer; the shared no-op without
+    one."""
+    t = _timer
+    if t is None:
+        return _NOOP
+    return t(name)
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the attached timer's counter ``name`` (a timer without
+    ``count`` keeps none)."""
+    t = _timer
+    if t is None:
+        return
+    add = getattr(t, "count", None)
+    if add is not None:
+        add(name, n)
 
 
 class StageTimer:
-    """Accumulating per-stage timer: ``with timer('frontend'): ...``. The
-    caller synchronizes the device where a stage must own its kernels
+    """Accumulating per-stage timer: ``with timer('frontend'): ...`` sums
+    host seconds and calls by stage, and marks the stage as a
+    ``record_function`` range; ``count`` keeps counters. Spans may close
+    on other threads (the autograd engine's, the viewer's). The caller
+    synchronizes the device where a stage must own its kernels
     (``timed``)."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self.counters: Dict[str, int] = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[stage] += time.perf_counter() - t0
-            self.counts[stage] += 1
+        from torch.profiler import record_function
+        with record_function(stage):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    self.totals[stage] += dt
+                    self.counts[stage] += 1
+
+    def count(self, name: str, n: int = 1):
+        with self._lock:
+            self.counters[name] += n
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         return {k: {"total_s": round(v, 4),
@@ -58,18 +116,3 @@ def timed(timer: Optional[StageTimer], stage: str, device=None):
         if device is not None and device.type == "cuda":
             import torch
             torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def trace(logdir: str):
-    """``torch.profiler`` trace of the block (CPU and, when present, CUDA
-    activity), written to ``logdir`` as a TensorBoard / Chrome trace."""
-    import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts,
-                 on_trace_ready=tensorboard_trace_handler(logdir)):
-        yield
