@@ -11,8 +11,18 @@ Phases (any failure exits nonzero, and no result line is printed):
    staging-edge scene (staging_scene: ragged extents, pixels stopping
    inside a stage) and at the mapping shape (512x384, 2^17 Gaussians,
    max_per_tile 512) in the single-view and the V=10 multi-view form;
+   the pack gather's backward (K3) on the inputs of a real gradient
+   render at the mapping shape, V=1 and V=10 (``rasterize_cuda_multi``,
+   the gradient of ``color.mean() + 0.1 depth.mean()``; 2^16 Gaussians,
+   where 2^17 fill every tile, so that about a quarter of the slots stay
+   masked out, as in a mapping window): the packed
+   cotangent exactly zero on every masked-out entry, and K3's dRaw
+   ``torch.equal`` to ``pack_backward_plain`` and to torch's
+   ``index_put_`` accumulation over every entry (what the render ran
+   before K3);
 4. kernel times at the mapping shape (CUDA events), beside the plain
-   versions and the bound the card could reach;
+   versions, the bound the card could reach and, for K3, the library
+   call that computes the same function (``index_put_``);
 5. small-input agreement: one mapping event on the synthetic plane of
    tests/test_torch_mapping.py on the card vs on the CPU;
 5b. loop-closure solvers, card vs CPU: pgo_align, pgo_align_multi and
@@ -30,7 +40,7 @@ Phases (any failure exits nonzero, and no result line is printed):
    full-width CUT3R (random weights from a seed), loop closure on (the
    JAX package's default; whether a closure fires on random weights is
    printed, not required) and Gaussian mapping, at least two mapping
-   events, then terminate; both kernels' launch counters must rise;
+   events, then terminate; all three kernels' launch counters must rise;
 7. the loop-closure path at full width: SLAMSystem.run_test (ground-truth
    depth and poses injected in place of the submap decode, relative
    poses perturbed) on an out-and-back trajectory over a textured plane
@@ -40,7 +50,8 @@ Phases (any failure exits nonzero, and no result line is printed):
    width. It fails unless a closure fired, the seam error and the loop
    error fell across it (mapping moves the keyframe poses that anchor
    the next submap, so the seams are open before the closure), the corrected
-   submaps' Gaussians moved, K1 and K2 launched inside gaussian_update,
+   submaps' Gaussians moved, K1, K2 and K3 launched inside
+   gaussian_update,
    and the PGBA scales, poses, depths and Gaussians are finite;
 8. the demo driver at the JAX package's production mapping schedule:
    ``cut3r_slam_tpu_torch.demo.main`` over phase 6's 16 frames (cut from
@@ -56,8 +67,8 @@ Phases (any failure exits nonzero, and no result line is printed):
    times include one synchronization per stage. It fails unless every
    output file exists, the keyframe eval holds a finite PSNR over every
    valid keyframe, renders_kf holds a colour and a depth per keyframe, no
-   frame without a new submap ran more than 3 mapping slices, K1 and K2
-   launched inside the batched refine and the batched global BA, and all
+   frame without a new submap ran more than 3 mapping slices, K1, K2 and
+   K3 launched inside the batched refine and the batched global BA, and all
    state is finite;
 9. CUT3R training at full width (``CUT3RConfig()`` with the self, cross,
    rgb and pose heads, random weights from seed 0, bf16 compute over f32
@@ -85,7 +96,7 @@ Phases (any failure exits nonzero, and no result line is printed):
    must move. The random weights are the package's training init
    (``init_train_state`` / ``init_trainable``: ``init_random`` with the
    pointmap heads' last convolution scaled by 0.05). Every loss
-   must be finite, and K1 and K2 must not launch;
+   must be finite, and K1, K2 and K3 must not launch;
 10. the offline evaluation chain: (a) ``integrate_points`` at 2^17
    Gaussians and 65,536 query points, 384x512, max_per_tile 512, card
    against CPU (visibility equal, every output within 1e-4); (b)
@@ -94,10 +105,10 @@ Phases (any failure exits nonzero, and no result line is printed):
    weight within 1e-5, the same triangle count); (c) ``demo_gba`` resumed
    from phase 8's ``gaussians.npz`` for 100 global-BA iterations (its
    files written, keyframe PSNR after no more than 0.02 dB below before,
-   K1 and K2 launched); (d) ``demo_test`` on a 24-frame ``synth_replica``
+   K1, K2 and K3 launched); (d) ``demo_test`` on a 24-frame ``synth_replica``
    sequence at the native 680x1200, mapped at 512 wide (``result.json``
    with an ATE against the ground truth below half that of the perturbed
-   poses it starts from, a finite PSNR, K1 and K2 launched); (e)
+   poses it starts from, a finite PSNR, K1, K2 and K3 launched); (e)
    ``run_eval --dataset replica`` over 12 frames of that sequence with the
    full-width CUT3R (phase 6's plausible random weights saved as a
    checkpoint and passed as ``--ckpt``, in the driver's own processes) at
@@ -139,7 +150,7 @@ Phases (any failure exits nonzero, and no result line is printed):
    shape: ``projective_transform`` with its Jacobians and ``corr_lookup``
    (1e-5 + 1e-5 relative), ``bundle_adjust``, ``moba`` and ``jdsa`` (1e-5
    + 1e-4 relative), one ``DroidNet`` forward at num_steps 2 (1e-4 + 1e-4
-   relative); K1 and K2 must not launch; (b) ``tv_loss``, ``sobel_edges``,
+   relative); K1, K2 and K3 must not launch; (b) ``tv_loss``, ``sobel_edges``,
    ``gaussian_blur`` (1e-6) and the robust Sim(3) of a 384x512 point-map
    pair (1e-5 on the scale, 1e-4 on R and t) card vs CPU; (c)
    ``SLAMSystem`` with ``GUI: {active: true, port: 0}`` over phase 6's
@@ -148,7 +159,8 @@ Phases (any failure exits nonzero, and no result line is printed):
    thread requests /api/state, /api/splats and /api/render while run()
    maps and again after it; every response must be 200, the splat count
    the arena's alive count, the render PNG equal to ``render_view`` of
-   the same pose within one 8-bit level, and K1 (not K2) must launch
+   the same pose within one 8-bit level, and K1 (not K2 or K3) must
+   launch
    inside the render requests (``launches_by_path["viewer"]``);
 13. ``parallel/`` over ``torch.distributed``: two ranks spawned on the one
    card over gloo (NCCL refuses two ranks on one card), each loading the
@@ -167,7 +179,7 @@ Phases (any failure exits nonzero, and no result line is printed):
    tests/test_torch_parallel_slam.py, then ``terminate``: the one-rank
    run's keyframes and mapping events on both ranks, bitwise-equal
    keyframe poses and arenas, poses within VP_POSE_BOUND of the one-rank
-   run, K1 and K2 launched inside ``run`` on every rank (rank 0's:
+   run, K1, K2 and K3 launched inside ``run`` on every rank (rank 0's:
    ``launches_by_path["view_parallel"]``); (c) one ``train`` step of the
    tiny CUT3R (linear head) at dp 2 and at fsdp 2, card against CPU (f32;
    losses, Adam first moments and parameters as phase 9 holds them), then
@@ -187,7 +199,7 @@ Phases (any failure exits nonzero, and no result line is printed):
    mapping event, every frame run and ``value`` = frames / the timed
    frames' seconds; the timed pass must repeat the warm pass (the same
    keyframe count, new-keyframe ranges and mapping slices frame by frame,
-   loop closures, keyframe poses within 1e-6); K1 and K2 must launch
+   loop closures, keyframe poses within 1e-6); K1, K2 and K3 must launch
    inside the timed pass (``launches_by_path["bench"]``: the counts are
    zeroed at ``reset_state`` and read when the micro-bench starts); the
    four micro-bench times must be finite and positive; and on the
@@ -502,6 +514,57 @@ def bound_ms(name, A, ext, tchk, pairs):
              mufu / PEAK_MUFU * 1e3)
     return max(parts), ("bytes" if parts[0] >= max(parts[1:]) else
                         "operations"), parts
+
+
+def k3_parity(G, scene, K4, cfg):
+    """K3 on the inputs of one gradient render of ``scene``
+    (frustum_scene's outputs) through ``rasterize_cuda_multi``: fails
+    unless the packed cotangent is exactly zero on every masked-out entry
+    and ``pack_backward`` is ``torch.equal`` to ``pack_backward_plain`` and
+    to torch's ``index_put_`` accumulation over every entry (the backward
+    the render ran before K3). Returns (ms, plain ms, library ms, bound
+    (ms, "bytes", (bytes ms,)), max |err|, masked-in entries, rows)."""
+    import torch
+    means, quats, scales, opac, colors = scene
+    seen, k3 = [], G.pack_backward
+
+    def spy(*a):
+        seen.append(a)
+        return k3(*a)
+    G.pack_backward = spy
+    try:
+        m = means.detach().clone().requires_grad_(True)
+        out = G.rasterize_cuda_multi(m, quats, scales, opac, colors, K4, cfg)
+        torch.autograd.grad(out["color"].mean() + 0.1 * out["depth"].mean(),
+                            m)
+    finally:
+        G.pack_backward = k3
+    if len(seen) != 1:
+        fail(f"phase 3: {len(seen)} K3 calls in one gradient render")
+    dG, eg, em, n_rows, cap = seen[0]
+    if not 0 < int(em.sum()) < em.numel():
+        fail(f"phase 3: {int(em.sum())} of {em.numel()} slots masked in: "
+             f"the scene does not test K3's masking")
+    if bool(dG[~em].any()):
+        fail("phase 3: a masked-out entry carries a packed cotangent")
+    got = k3(dG, eg, em, n_rows, cap)
+    plain = G.pack_backward_plain(dG, eg, em, n_rows)
+
+    def library():
+        return torch.zeros_like(got).index_put_((eg,), dG, accumulate=True)
+    if not torch.equal(got, plain) or not torch.equal(got, library()):
+        fail(f"phase 3: K3 differs from its plain version by "
+             f"{float((got - plain).abs().max()):.3e}, from index_put_ by "
+             f"{float((got - library()).abs().max()):.3e}")
+    err = float((got - plain).abs().max())
+    t = cuda_ms(lambda: k3(dG, eg, em, n_rows, cap))
+    t_p = cuda_ms(lambda: G.pack_backward_plain(dG, eg, em, n_rows), 3)
+    t_l = cuda_ms(library, 3)
+    n_in = int(em.sum())
+    # the ids and the mask of every entry, the masked-in cotangent rows,
+    # every row of dRaw
+    b_ms = (eg.numel() * (8 + 1) + n_in * 64 + n_rows * 64) / PEAK_BYTES * 1e3
+    return t, t_p, t_l, (b_ms, "bytes", (b_ms,)), err, n_in, n_rows
 
 
 # ---------------------------------------------------------------------------
@@ -2330,6 +2393,9 @@ def droid_phase(G, card, frames):
     log("[droid] card vs CPU (f32), max err / max |cpu|: " + ", ".join(
         f"{k} {v:.2e}" for k, v in errs.items()))
     log(f"[droid] launches: {launches}")
+    if any(launches.values()):
+        fail(f"phase 12: the DROID stack launched a rasterizer kernel: "
+             f"{launches}")
     del net, dev
     return launches
 
@@ -2508,7 +2574,8 @@ def viewer_phase(G, card, frames, K4):
     launches = dict(G.LAUNCHES)
     if any(r[0] != 200 or r[1] != "image/png" for r in rs):
         fail(f"phase 12: /api/render answered {[r[:2] for r in rs]}")
-    if launches["gs_blend_fwd"] <= 0 or launches["gs_blend_bwd"] != 0:
+    if launches["gs_blend_fwd"] <= 0 or launches["gs_blend_bwd"] != 0 \
+            or launches["gs_pack_bwd"] != 0:
         fail(f"phase 12: launches inside /api/render: {launches}")
     got = _png(rs[-1][2]).astype(int)
 
@@ -3442,9 +3509,10 @@ def planned_bins_phase(G, card):
 def kernel_phases(G, card):
     """Phases 3 and 4: K1 / K2 against their plain versions on the 32x32
     scene, the staging-edge scene and at the mapping shape (V = 1 and 10,
-    the median cotangent nonzero), then their times at the mapping shape.
+    the median cotangent nonzero), K3 on a gradient render's inputs at the
+    mapping shape (V = 1 and 10), then their times at the mapping shape.
     Returns the V = 1 rows of the kernels line: name -> (ms, plain ms,
-    bound, max |err|)."""
+    bound, max |err|, library ms)."""
     import torch
     from cut3r_slam_tpu_torch.ops.gs_raster import RasterizeConfig
     K4t = torch.tensor([40.0, 40.0, 16.0, 16.0], device="cuda")
@@ -3470,6 +3538,16 @@ def kernel_phases(G, card):
     K4m = torch.tensor([f, f, W / 2, H / 2], device="cuda")
     rows = {}
     for V in (1, 10):
+        t_3, p_3, l_3, b_3, e_3, n_in, n_rows = k3_parity(
+            G, frustum_scene(2 ** 16, H, W, f, V, V), K4m, cfg)
+        log(f"[parity] 512x384 P=2^16 V={V}: K3 on a gradient render, "
+            f"{n_in} masked-in entries of {V * cfg.n_tiles * cfg.max_per_tile}"
+            f" onto {n_rows} rows: equal to its plain version and to "
+            f"index_put_; masked-out cotangents zero")
+        log(f"[time] V={V}: K3 {t_3:.4f} ms (plain {p_3:.3f}, index_put_ "
+            f"{l_3:.3f}, bound {b_3[0]:.4f} by bytes) | {card}")
+        if V == 1:
+            rows["gs_pack_bwd"] = (t_3, p_3, b_3, e_3, l_3)
         A, ext = G.packed_entries(*frustum_scene(2 ** 17, H, W, f, V, V),
                                   K4m, cfg)
         e1, fl, (O, d, md, T, tchk), flip = k1_errors(G, A, ext)
@@ -3494,8 +3572,8 @@ def kernel_phases(G, card):
         if V == 1:
             p_f = cuda_ms(lambda: G.blend_forward_plain(A, ext, True), 3)
             p_b = cuda_ms(lambda: G.blend_backward_plain(A, ext, *cots), 3)
-            rows["gs_blend_fwd"] = (t_f, p_f, b_f, e1)
-            rows["gs_blend_bwd"] = (t_b, p_b, b_b, e2)
+            rows["gs_blend_fwd"] = (t_f, p_f, b_f, e1, None)
+            rows["gs_blend_bwd"] = (t_b, p_b, b_b, e2, None)
             log(f"[time] V=1: K1 {t_f:.4f} ms (plain {p_f:.3f}, bound "
                 f"{b_f[0]:.4f} by {b_f[1]}); K2 {t_b:.4f} ms (plain "
                 f"{p_b:.3f}, bound {b_b[0]:.4f} by {b_b[1]}) | {card}")
@@ -3701,9 +3779,12 @@ def main():
     mark("phase 15")
 
     kernels = []
-    for name, replaces in (("gs_blend_fwd", ":186 _blend_fwd_kernel"),
-                           ("gs_blend_bwd", ":241 _blend_bwd_kernel")):
-        t_k, t_p, (b_ms, b_by, _), err = rows[name]
+    for name, replaces in (
+            ("gs_blend_fwd", ":186 _blend_fwd_kernel"),
+            ("gs_blend_bwd", ":241 _blend_bwd_kernel"),
+            ("gs_pack_bwd", ":347-350 the default pack gather's backward,"
+                            " XLA's scatter-add (no Pallas kernel)")):
+        t_k, t_p, (b_ms, b_by, _), err, t_lib = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cut3r_slam_tpu_torch/csrc/{name}.cu",
@@ -3722,7 +3803,7 @@ def main():
                                  "bench": bench_launches[name]},
             "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None})
+            "library_ms": t_lib})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -44,6 +44,9 @@ SOURCES: Dict[str, tuple] = {
     # A, extent, R, K, nC, tchk, tleft, gO, gd, gmd, gT, dA, stream
     "gs_blend_bwd": ("gs_blend_bwd",
                      [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
+    # dG, entry_gauss, entry_mask, E, n_rows, cap, work, dRaw, stream
+    "gs_pack_bwd": ("gs_pack_bwd",
+                    [_P, _P, _P, _I, ctypes.c_longlong, _I, _P, _P, _P]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

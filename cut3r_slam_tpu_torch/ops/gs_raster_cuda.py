@@ -11,17 +11,25 @@ folded into q0). The blend over the packed entries is:
   ``_blend_fwd_kernel``), optionally saving each 32-entry chunk's inbound
   transmittance ``tchk`` for the backward;
 * K2 ``blend_backward`` -> ``csrc/gs_blend_bwd.cu`` (replaces
-  ``_blend_bwd_kernel``), one reverse pass from the saved ``tchk``.
+  ``_blend_bwd_kernel``), one reverse pass from the saved ``tchk``;
+* K3 ``pack_backward`` -> ``csrc/gs_pack_bwd.cu``, the backward of the
+  pack gather ``raw[entry_gauss]``: each Gaussian row's sum over its
+  masked-in entries, in ascending entry order (bitwise torch's
+  stable-sorted indexing backward, without its serial walk over the
+  masked slots, which all point at a view's Gaussian 0).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and counts
 the launch in ``LAUNCHES``; for CPU tensors it runs the plain PyTorch
 version beside it (``blend_forward_plain`` / ``blend_backward_plain``, the
-autograd VJP of the plain forward). ``_BlendFn`` is the autograd Function
-over both. Everything around the blend (preprocess, binning, the
-occupancy sort, the pack gather and the image-space maps) is plain PyTorch
-on either device. The pack gather's backward is torch's sort-based
-indexing backward, or, with a cached ``compute_bin_plan``, a sum over the
-plan's pre-sorted segments (``_PlannedGather``).
+autograd VJP of the plain forward; ``pack_backward_plain``). ``_BlendFn``
+is the autograd Function over K1 / K2, ``_PackGatherFn`` the pack gather
+with K3 as its backward. Everything else around the blend (preprocess,
+binning, the occupancy sort, the pack gather's forward and the
+image-space maps) is plain PyTorch on either device. On the card a
+gradient render's pack gather takes ``_PackGatherFn``, or, with a cached
+``compute_bin_plan``, a sum over the plan's pre-sorted segments
+(``_PlannedGather``); on the CPU, without a plan, it stays the plain
+``raw[entry_gauss]`` with torch's indexing backward.
 
 Divergences from the Pallas kernel, both towards ``ops/gs_raster.rasterize``
 semantics: a pixel that stops at T_MIN stays stopped for the rest of the
@@ -42,7 +50,8 @@ from .gs_raster import (RasterizeConfig, TILE, ALPHA_MIN, T_MIN,
 
 __all__ = ["rasterize_cuda", "rasterize_cuda_forward", "rasterize_cuda_multi",
            "blend_forward", "blend_backward", "blend_forward_plain",
-           "blend_backward_plain", "packed_entries", "LAUNCHES", "CHUNK"]
+           "blend_backward_plain", "pack_backward", "pack_backward_plain",
+           "packed_entries", "LAUNCHES", "CHUNK"]
 
 PX = TILE * TILE   # 256 pixels per tile
 NCH = 16           # packed entry channels
@@ -50,7 +59,7 @@ NOUT = 8           # accumulated channels (rows 0..7 of an entry)
 CHUNK = 32         # entries per chunk (csrc/gs_blend_common.cuh CHUNK)
 
 # kernel launch counts, incremented only where a kernel is launched
-LAUNCHES = {"gs_blend_fwd": 0, "gs_blend_bwd": 0}
+LAUNCHES = {"gs_blend_fwd": 0, "gs_blend_bwd": 0, "gs_pack_bwd": 0}
 
 
 def _n_chunks(K: int) -> int:
@@ -62,12 +71,13 @@ def _pixel_xy(device):
     return (p % TILE).float(), torch.div(p, TILE, rounding_mode="floor").float()
 
 
-def _check(name, t, dtype, ndim):
+def _check(name, t, dtype, ndim, device="cuda"):
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous() \
-            or t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a contiguous {ndim}-d {dtype} CUDA "
-                         f"tensor, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device} (contiguous={t.is_contiguous()})")
+            or t.device.type != device:
+        raise ValueError(f"{name}: expected a contiguous {ndim}-d {dtype} "
+                         f"{device.upper()} tensor, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device} "
+                         f"(contiguous={t.is_contiguous()})")
 
 
 def _check_aligned(name, t):
@@ -255,6 +265,88 @@ def _blend(A, extent, differentiable: bool):
 
 
 # ---------------------------------------------------------------------------
+# K3: pack-gather backward
+# ---------------------------------------------------------------------------
+
+def pack_backward_plain(dG, entry_gauss, entry_mask, n_rows: int):
+    """Plain PyTorch K3: dRaw (n_rows, 16), row r the sum of dG (E, 16)
+    over the masked-in entries e with entry_gauss[e] == r."""
+    return dG.new_zeros(n_rows, dG.shape[1]).index_put_(
+        (entry_gauss[entry_mask],), dG[entry_mask], accumulate=True)
+
+
+def _pack_work_ints(n_rows: int, cap: int) -> int:
+    """K3's int32 scratch (csrc/gs_pack_bwd.cu): row counts and row lists
+    of ``cap`` slots."""
+    return n_rows * (1 + cap)
+
+
+def pack_backward(dG, entry_gauss, entry_mask, n_rows: int, cap: int):
+    """K3 wrapper: dG (E, 16) float32, entry_gauss (E,) int64, entry_mask
+    (E,) bool, all on one device; ``cap``: the rows' list capacity (the
+    binning's ``max_dup``; a row with more entries is still summed, by a
+    scan over every entry). The CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors; malformed inputs raise on either."""
+    dev = dG.device.type
+    for name, t, dtype in (("dG", dG, torch.float32),
+                           ("entry_gauss", entry_gauss, torch.int64),
+                           ("entry_mask", entry_mask, torch.bool)):
+        _check(name, t, dtype, 2 if t is dG else 1, dev)
+    E = dG.shape[0]
+    if dG.shape[1] != NCH or entry_gauss.shape[0] != E \
+            or entry_mask.shape[0] != E or E >= 2 ** 31 \
+            or not 0 <= n_rows < 2 ** 31 or cap < 1:
+        raise ValueError(f"dG {tuple(dG.shape)} / entry_gauss "
+                         f"{tuple(entry_gauss.shape)} / entry_mask "
+                         f"{tuple(entry_mask.shape)} / n_rows {n_rows} / "
+                         f"cap {cap}")
+    if dev == "cpu":
+        return pack_backward_plain(dG, entry_gauss, entry_mask, n_rows)
+    if dev != "cuda":
+        raise ValueError(f"dG: expected a CUDA or CPU tensor, got {dG.device}")
+    _check_aligned("dG", dG)
+    from ..kernels import load
+    lib = load("gs_pack_bwd")
+    work = torch.empty(_pack_work_ints(n_rows, cap), dtype=torch.int32,
+                       device=dG.device)
+    dRaw = torch.empty(n_rows, NCH, dtype=torch.float32, device=dG.device)
+    rc = lib.gs_pack_bwd(dG.data_ptr(), entry_gauss.data_ptr(),
+                         entry_mask.data_ptr(), E, n_rows, cap,
+                         work.data_ptr(), dRaw.data_ptr(),
+                         _stream_ptr(dG.device))
+    LAUNCHES["gs_pack_bwd"] += 1
+    if rc != 0:
+        raise RuntimeError(f"gs_pack_bwd launch failed: cudaError {rc}")
+    return dRaw
+
+
+class _PackGatherFn(torch.autograd.Function):
+    """raw (N, 16) -> raw[entry_gauss] (R, K, 16), whose backward is K3
+    over the masked-in entries (entry_mask (R, K)); the masked-out
+    entries' cotangents are zero by construction (``_assemble_A`` folds
+    -1e30 into their q0, so the blend rejects them). ``cap`` is the
+    binning's ``max_dup``: ``_bin_gaussians`` gives a Gaussian at most that
+    many slots a view, and cached bins come from it, so every render's
+    rows fit K3's lists; only hand-built bins reach its scan past them."""
+
+    @staticmethod
+    def forward(ctx, raw, entry_gauss, entry_mask, cap):
+        ctx.save_for_backward(entry_gauss, entry_mask)
+        ctx.n_rows, ctx.cap = raw.shape[0], cap
+        return raw[entry_gauss]
+
+    @staticmethod
+    def backward(ctx, dG):
+        entry_gauss, entry_mask = ctx.saved_tensors
+        with span("raster.pack_bwd"):
+            dRaw = pack_backward(dG.reshape(-1, NCH).contiguous(),
+                                 entry_gauss.reshape(-1),
+                                 entry_mask.reshape(-1), ctx.n_rows,
+                                 ctx.cap)
+        return dRaw, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # packing + image maps
 # ---------------------------------------------------------------------------
 
@@ -385,15 +477,18 @@ def _plan_flat(plan, P, nt, K):
 
 
 def _pack_rows(pre, colors, entry_gauss, entry_mask, order, ox1, oy1,
-               plan=None):
+               max_dup, plan=None):
     """Gather and pack the occupancy-sorted tile rows of one or more views.
     ``pre`` leaves are (V, P, ...); entry_gauss / entry_mask / order are
-    (V, n_tiles, K) / (V, n_tiles); ``plan``: V stacked
+    (V, n_tiles, K) / (V, n_tiles); ``max_dup``: the binning's tiles per
+    Gaussian (K3's list capacity); ``plan``: V stacked
     ``compute_bin_plan`` outputs whose order is ``order``. Returns
     (A (V * n_tiles, K, 16), extent (V * n_tiles,) int32) in the sorted
     row order. Counts the views by the gather's backward:
-    ``render.views.planned`` (``_PlannedGather``), ``render.views.sorted``
-    (torch's sort-based indexing backward) or ``render.views.nograd``."""
+    ``render.views.planned`` (``_PlannedGather``),
+    ``render.views.pack_kernel`` (``_PackGatherFn``: K3, CUDA only),
+    ``render.views.sorted`` (torch's sort-based indexing backward, CPU
+    only) or ``render.views.nograd``."""
     V, P = pre["t_center"].shape[:2]
     nt, K = entry_gauss.shape[1:]
     voff = (torch.arange(V, device=entry_gauss.device) * P)[:, None, None]
@@ -401,17 +496,21 @@ def _pack_rows(pre, colors, entry_gauss, entry_mask, order, ox1, oy1,
     em_s = torch.gather(entry_mask, 1, order[..., None].expand(V, nt, K))
     raw = _build_raw(pre, colors).reshape(V * P, NCH)
     eg_flat = (eg_s + voff).reshape(V * nt, K)
+    em_flat = em_s.reshape(V * nt, K)
     if plan is not None and raw.requires_grad:
         count("render.views.planned", V)
         G = _PlannedGather.apply(raw, eg_flat, *_plan_flat(plan, P, nt, K))
+    elif raw.requires_grad and raw.is_cuda:
+        count("render.views.pack_kernel", V)
+        G = _PackGatherFn.apply(raw, eg_flat, em_flat, max_dup)
     else:
         # backward, if any: torch's sort-based indexing backward
         count("render.views.sorted" if raw.requires_grad
               else "render.views.nograd", V)
         G = raw[eg_flat]
     A = _assemble_A(G, ox1[order].reshape(-1), oy1[order].reshape(-1),
-                    em_s.reshape(V * nt, K))
-    return A, _extent(em_s.reshape(V * nt, K))
+                    em_flat)
+    return A, _extent(em_flat)
 
 
 def _prepare(means_cam, quats_wxyz, scales, opacities, colors, K4,
@@ -452,7 +551,7 @@ def _prepare(means_cam, quats_wxyz, scales, opacities, colors, K4,
     ox1, oy1 = _tile_origins(cfg, dev)
     with span("raster.pack"):
         A, extent = _pack_rows(pre, colors, entry_gauss, entry_mask, order,
-                               ox1, oy1, plan)
+                               ox1, oy1, cfg.max_dup, plan)
     return pre, A, extent, inv_order
 
 
