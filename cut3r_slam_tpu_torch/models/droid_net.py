@@ -214,6 +214,10 @@ class DroidNet(nn.Module):
         self.update = UpdateModule()
         self.to(resolve_device(device))
 
+    @property
+    def device(self) -> torch.device:
+        return self.fnet.conv1.weight.device
+
     def extract_features(self, images):
         """images (N, H, W, 3) in [0, 255] -> fmaps (N, 128, h, w), net
         (N, 128, h, w), inp (N, 128, h, w) at 1/8."""

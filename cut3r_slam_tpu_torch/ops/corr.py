@@ -5,11 +5,13 @@ A 4-level average-pooled all-pairs correlation volume (one batched matrix
 product, as in the JAX package, where it is XLA and no Pallas kernel),
 then a (2r+1)^2 window sampled bilinearly around each target at each
 level, zeros outside the volume. The layout is the JAX package's: window
-channels dy-major, levels concatenated level-major, channels last.
+channels dy-major, levels concatenated level-major, channels last. The
+lookup also reads a pool of volumes by row (the DROID tracker's cache of
+per-edge pyramids, ``slam/droid_frontend.CorrCache``).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -41,10 +43,14 @@ def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
 
 
 def _bilinear_window_sample(vol: torch.Tensor, coords: torch.Tensor,
-                            radius: int) -> torch.Tensor:
-    """vol (N, H, W, h2, w2) one level; coords (N, H, W, 2) target (x, y)
-    in level coordinates. Returns (N, H, W, (2r+1)^2)."""
-    N, H, W, h2, w2 = vol.shape
+                            radius: int, rows: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """One level's (2r+1)^2 window around coords (N, H, W, 2), the target
+    (x, y) in level coordinates. vol: (N, H, W, h2, w2), a volume per
+    pixel; or, with ``rows`` (N, H, W), a pool (R, h2, w2) of which row
+    ``rows[n, y, x]`` is that pixel's volume. The taps are read in the
+    coordinates' dtype; returns (N, H, W, (2r+1)^2) in it."""
+    h2, w2 = vol.shape[-2:]
     r = radius
     d = torch.arange(-r, r + 1, dtype=coords.dtype, device=coords.device)
     dy, dx = torch.meshgrid(d, d, indexing="ij")   # dy-major window order
@@ -56,13 +62,18 @@ def _bilinear_window_sample(vol: torch.Tensor, coords: torch.Tensor,
     y0 = torch.floor(cy)
     wx = cx - x0
     wy = cy - y0
-    flat = vol.reshape(N, H, W, h2 * w2)
+    flat = vol.reshape(*vol.shape[:-2], h2 * w2)
 
     def gather(yi, xi):
         ok = (xi >= 0) & (xi < w2) & (yi >= 0) & (yi < h2)
-        xi = xi.clamp(0, w2 - 1).long()
-        yi = yi.clamp(0, h2 - 1).long()
-        vals = torch.gather(flat, -1, yi * w2 + xi)
+        # the cell's index formed in the coordinates' dtype (exact for
+        # any volume under 2^24 cells), one cast to int64
+        idx = (yi.clamp(0, h2 - 1) * w2 + xi.clamp(0, w2 - 1)).long()
+        if rows is None:
+            vals = torch.gather(flat, -1, idx)
+        else:
+            vals = flat[rows[..., None], idx]
+        vals = vals.to(cx.dtype)
         return torch.where(ok, vals, torch.zeros_like(vals))
 
     v00 = gather(y0, x0)
@@ -75,8 +86,12 @@ def _bilinear_window_sample(vol: torch.Tensor, coords: torch.Tensor,
 
 
 def corr_lookup(pyramid: List[torch.Tensor], coords: torch.Tensor,
-                radius: int = 3) -> torch.Tensor:
+                radius: int = 3, rows: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """coords (N, H, W, 2) pixel coordinates in the level-0 frame. Returns
-    (N, H, W, L * (2r+1)^2) stacked window correlations, channels last."""
-    return torch.cat([_bilinear_window_sample(vol, coords / (2 ** i), radius)
+    (N, H, W, L * (2r+1)^2) stacked window correlations, channels last, in
+    the coordinates' dtype. With ``rows`` each level is a pool of volumes
+    (R, h_l, w_l) and ``rows`` (N, H, W) picks each pixel's."""
+    return torch.cat([_bilinear_window_sample(vol, coords / (2 ** i), radius,
+                                              rows)
                       for i, vol in enumerate(pyramid)], -1)

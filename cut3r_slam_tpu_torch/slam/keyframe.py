@@ -90,6 +90,18 @@ class KeyframeStore:
         self.count += 1
         return i
 
+    def remove(self, i: int):
+        """Drop keyframe ``i`` (a tracker that removes keyframes): every
+        later slot's host metadata and encoder tokens move down by one."""
+        n = self.count
+        for name in ("tstamp", "pose", "intrinsic", "image", "image_map",
+                     "intrinsic_map", "depth"):
+            buf = getattr(self, name)
+            buf[i:n - 1] = buf[i + 1:n].copy()
+        self.featI[i:n - 1] = self.featI[i + 1:n].clone()
+        self.pts_ds[i:n - 1] = self.pts_ds[i + 1:n].clone()
+        self.count -= 1
+
     def last_feat(self) -> torch.Tensor:
         return self.featI[self.count - 1]
 

@@ -25,6 +25,16 @@ viewer (``gui/server.py``) from a daemon thread; the loop holds
 or map state, and the viewer reads and renders under it (the arena is
 updated in place).
 
+``Tracking.model`` chooses the tracker: ``cut3r`` (the default: the
+motion filter above and ``TrackFrontend``'s submap decodes) or ``droid``
+(``slam/droid_frontend.py``: DROID-SLAM's flow motion filter, factor
+graph with its cached correlation pyramids and dense BA, on a
+``DroidNet`` passed as ``model``; its settings under ``Tracking.droid``,
+DROID-SLAM's defaults otherwise). Both write poses and depths into the
+keyframe store for the mapper; the loop backend, GT injection and
+terminate-time densification decode CUT3R submaps and run with ``cut3r``
+only. Any other value raises.
+
 ``Mapping.view_parallel: N`` (N > 1) runs view-parallel mapping over a
 process group of N ranks (``torchrun``, one process per card; the group
 initialized by ``parallel.init_distributed``): every rank runs the whole
@@ -64,12 +74,16 @@ from .motion_filter import MotionFilter
 from .factor_graph import FactorGraph
 from .frontend import TrackFrontend, pose_vec_to_matrix_np, \
     submap_postprocess
+from .droid_frontend import DROID_DEFAULTS, DroidFrontend, DroidGraph, \
+    DroidMotionFilter, DroidVideo
 from .backend import TrackBackend
 from .mapping import MappingBackend, MappingConfig
 from .renderer import render_window
 from .sim3_pgo import PGBABuffer
 
-__all__ = ["SLAMSystem"]
+__all__ = ["SLAMSystem", "TRACKERS"]
+
+TRACKERS = ("cut3r", "droid")
 
 
 def _locked_slices(gen, lock):
@@ -106,6 +120,14 @@ class SLAMSystem:
         mcfg = cfg.get("Mapping", {})
         trcfg = cfg.get("Training", {})
         mf_cfg = tcfg.get("motion_filter", {})
+        self.tracker = str(tcfg.get("model", "cut3r"))
+        if self.tracker not in TRACKERS:
+            raise ValueError(f"Tracking.model {self.tracker!r}: expected one "
+                             f"of {TRACKERS}")
+        if self.tracker == "droid" and enable_loop:
+            raise ValueError("Tracking.model droid has no loop backend (it "
+                             "re-decodes CUT3R submaps): pass "
+                             "enable_loop=False")
         self.mesh, self.rank = None, 0
         n_mv = int(mcfg.get("view_parallel", 0))
         if n_mv > 1:
@@ -123,27 +145,39 @@ class SLAMSystem:
         H, W = img_hw
         self.img_hw = img_hw
         self.map_hw = tuple(map_hw) if map_hw is not None else (H, W)
-        self.keyframes = KeyframeStore(
-            buffer, img_hw, (H // 16) * (W // 16), model.cfg.enc_embed_dim,
-            map_hw=self.map_hw, device=self.device)
-        prior = None
-        if bool(mf_cfg.get("use_prior", False)):
-            prior = build_prior_fns(mf_cfg, (H, W), self.device)
-        self.filter = MotionFilter(model, self.keyframes,
-                                   thresh=mf_cfg.get("thresh", 0.9),
-                                   skip=mf_cfg.get("skip", 5),
-                                   kf_every=mf_cfg.get("kf_every", 0),
-                                   prior=prior)
-        self.graph = FactorGraph()
-        self.frontend = TrackFrontend(model, self.keyframes, self.graph)
-        # the JAX SLAMSystem reads these three backend keys only (it keeps
-        # freeze_after 20 and the Adam rate 5e-4)
-        bcfg = tcfg.get("backend", {})
-        self.backend = TrackBackend(
-            self.frontend, self.keyframes, self.graph,
-            loop_iters=bcfg.get("loop_iters", 2000),
-            loop_gap=bcfg.get("loop_gap", 8),
-            nms_thresh=bcfg.get("nms_thresh", 0.4))
+        self.model = model
+        self._mf_cfg = mf_cfg
+        self._droid_cfg = dict(DROID_DEFAULTS, **tcfg.get("droid", {}))
+        unknown = set(self._droid_cfg) - set(DROID_DEFAULTS)
+        if unknown:
+            raise ValueError(f"Tracking.droid: unknown keys {sorted(unknown)}")
+        # DROID keeps no encoder tokens in the store
+        tokens, dim = ((H // 16) * (W // 16), model.cfg.enc_embed_dim) \
+            if self.tracker == "cut3r" else (1, 1)
+        self.keyframes = KeyframeStore(buffer, img_hw, tokens, dim,
+                                       map_hw=self.map_hw, device=self.device)
+        self.backend = None
+        if self.tracker == "droid":
+            self._init_droid()
+        else:
+            prior = None
+            if bool(mf_cfg.get("use_prior", False)):
+                prior = build_prior_fns(mf_cfg, (H, W), self.device)
+            self.filter = MotionFilter(model, self.keyframes,
+                                       thresh=mf_cfg.get("thresh", 0.9),
+                                       skip=mf_cfg.get("skip", 5),
+                                       kf_every=mf_cfg.get("kf_every", 0),
+                                       prior=prior)
+            self.graph = FactorGraph()
+            self.frontend = TrackFrontend(model, self.keyframes, self.graph)
+            # the JAX SLAMSystem reads these three backend keys only (it
+            # keeps freeze_after 20 and the Adam rate 5e-4)
+            bcfg = tcfg.get("backend", {})
+            self.backend = TrackBackend(
+                self.frontend, self.keyframes, self.graph,
+                loop_iters=bcfg.get("loop_iters", 2000),
+                loop_gap=bcfg.get("loop_gap", 8),
+                nms_thresh=bcfg.get("nms_thresh", 0.4))
         self.enable_loop = enable_loop
         pgba_cfg = tcfg.get("pgba", {})
         self._pgba_args = None
@@ -198,6 +232,20 @@ class SLAMSystem:
                 self, port=int(gui_cfg.get("port", 8080)),
                 max_splats=int(gui_cfg.get("max_splats", 400_000)))
 
+    def _init_droid(self):
+        """DROID's video, factor graph, motion filter and frontend over the
+        keyframe store, at ``Tracking.droid``'s settings."""
+        c, kf = self._droid_cfg, self.keyframes
+        kf_every = int(self._mf_cfg.get("kf_every", 0))
+        video = DroidVideo(kf.capacity, kf.img_hw, self.device)
+        self.graph = DroidGraph(self.model, video)
+        self.filter = DroidMotionFilter(
+            self.model, kf, video, thresh=c["filter_thresh"],
+            kf_every=kf_every)
+        # a fixed keyframe interval removes no keyframe
+        self.frontend = DroidFrontend(self.model, kf, video, self.graph, c,
+                                      remove_keyframes=kf_every == 0)
+
     def _init_mapper(self, K4_map):
         mh, mw = self.map_hw
         self.mapper = MappingBackend(
@@ -232,23 +280,26 @@ class SLAMSystem:
         kf = KeyframeStore(old.capacity, old.img_hw, int(old.featI.shape[1]),
                            int(old.featI.shape[2]), map_hw=old.map_hw,
                            device=self.device)
-        if self.filter.prior is not None:
-            kf.ensure_prior_buffers()
         self.keyframes = kf
-        self.filter.keyframes = kf
-        self.frontend.keyframes = kf
-        self.backend.kf = kf
-        self.graph = FactorGraph()
-        self.frontend.graph = self.graph
-        self.backend.graph = self.graph
-        self.frontend.is_initialized = False
-        self.frontend.t1 = 0
+        if self.tracker == "droid":
+            self._init_droid()
+        else:
+            if self.filter.prior is not None:
+                kf.ensure_prior_buffers()
+            self.filter.keyframes = kf
+            self.frontend.keyframes = kf
+            self.backend.kf = kf
+            self.graph = FactorGraph()
+            self.frontend.graph = self.graph
+            self.backend.graph = self.graph
+            self.frontend.is_initialized = False
+            self.frontend.t1 = 0
+            self.backend.freeze_counter = 0
+            self.backend.closed = []
+            self.backend.closed_loop = {"idx_current": [], "idx_matched": [],
+                                        "lc_fl": []}
         if getattr(self, "_gt_store", None) is not None:
             self._gt_store.clear()
-        self.backend.freeze_counter = 0
-        self.backend.closed = []
-        self.backend.closed_loop = {"idx_current": [], "idx_matched": [],
-                                    "lc_fl": []}
         if self._pgba_args is not None:
             self.pgba = PGBABuffer(**self._pgba_args)
         self._map_gen = None
@@ -448,9 +499,10 @@ class SLAMSystem:
         ``gap`` frames, decode the middle frame against its predecessor
         keyframe (the predecessor's stored tokens + the middle frame's,
         padded to the submap's six views), append it as a keyframe and
-        add it to the map (pose refine, seed, a 20-iteration polish)."""
+        add it to the map (pose refine, seed, a 20-iteration polish). Adds
+        nothing with the DROID tracker (the decode is CUT3R's)."""
         kf = self.keyframes
-        if self.mapper is None or not self.images:
+        if self.mapper is None or not self.images or self.tracker != "cut3r":
             return 0
         dev = self.device
         th, tw = kf.img_hw

@@ -63,6 +63,29 @@ def test_lookup_matches_jax_off_the_volume(radius):
     assert not corr.corr_lookup(pyr, torch.tensor(far), radius).any()
 
 
+def test_pooled_lookup_reads_each_pixels_row():
+    """A pool of volumes read by row (the DROID tracker's per-edge cache)
+    gives the lookup of each edge's own volumes, bitwise: two edges'
+    pyramids stored in a pool of three slots in swapped order, targets off
+    the volume."""
+    f1, f2 = _fmaps(6, N=2, H=8, W=10)
+    N, H, W = f1.shape[:3]
+    rng = np.random.default_rng(7)
+    coords = torch.tensor(np.stack([rng.uniform(-4, W + 4, (N, H, W)),
+                                    rng.uniform(-4, H + 4, (N, H, W))], -1),
+                          dtype=torch.float32)
+    pyr = corr.build_corr_pyramid(torch.tensor(f1), torch.tensor(f2))
+    slot = torch.tensor([2, 0])
+    pool = []
+    for p in pyr:
+        buf = torch.zeros(3 * H * W, *p.shape[-2:])
+        buf.view(3, H * W, -1)[slot] = p.reshape(N, H * W, -1)
+        pool.append(buf)
+    rows = (slot[:, None] * (H * W) + torch.arange(H * W)).reshape(N, H, W)
+    assert torch.equal(corr.corr_lookup(pool, coords, 3, rows),
+                       corr.corr_lookup(pyr, coords, 3))
+
+
 def test_lookup_window_layout():
     """Integer targets read the volume: window channel k of level 0 is
     (dy, dx) = divmod(k, 2r + 1) - r, dy-major."""
