@@ -223,6 +223,18 @@ Phases (any failure exits nonzero, and no result line is printed):
    ``cast_params_bf16`` and runs its bf16 forward over two frames:
    finite, the same shapes, within 5e-2 of max |output| of the f32-stored
    weights' forward;
+16. the mapping window's gradient renders as CUDA graphs
+   (``slam/render_graph.py``) at ``slam_map``'s shapes (384x512, an arena
+   of 2^18 slots, ~98k Gaussians seeded from two keyframes, a window of 6
+   keyframes): three calls of a 20-iteration window optimization (no
+   early stop) each way from the same state, eagerly (``render_graph.run`` calling the body) and
+   graphed; the final Gaussians, poses and exposures must be
+   ``torch.equal``, the graphed run must capture and replay, and the
+   second and third calls (every structure warm) must replay every
+   render. Printed: ms an iteration each way (first and third call),
+   kernel launches and host waits an iteration (``torch.profiler``'s
+   runtime calls over the second call), ms a capture, the memory the
+   graphs hold and each way's peak;
 then the kernels JSON line, the card line and the result JSON line.
 
 Tolerances (K1 vs plain): every output within 1e-3 + 1e-3|ref| on all but
@@ -3416,6 +3428,155 @@ def grad_errors(got, ref):
             for k in ref}
 
 
+RG_VIEWS = 6      # phase 16's window: slam_map's V = 6 window
+RG_ITERS = 20     # iterations a window optimization call (2 segments)
+
+
+def window_mapper(H=384, W=512, views=RG_VIEWS):
+    """A mapper at ``slam_map``'s shapes: 2^18 slots, ``views`` keyframes
+    of ``synth_frames`` 2 cm apart over a gently curved wall 2-3 m away,
+    the first two seeded (~98k Gaussians)."""
+    import torch
+    from cut3r_slam_tpu_torch.geometry.pointmap import depth_to_pointmap
+    from cut3r_slam_tpu_torch.slam.mapping import MappingBackend, \
+        MappingConfig
+    f = 0.9 * W
+    K4 = np.asarray([f, f, W / 2, H / 2], np.float32)
+    be = MappingBackend(MappingConfig(height=H, width=W), K4,
+                        device="cuda", seed=0)
+    frames = synth_frames(views, H, W, seed=16)
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    depth = (2.5 + 0.3 * np.sin(xx / 60.0) * np.cos(yy / 45.0)).astype(
+        np.float32)
+    for i, img in enumerate(frames):
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[0, 3] = -0.02 * i
+        be.add_keyframe(i, img, depth, w2c)
+        if i < 2:
+            pm = depth_to_pointmap(
+                torch.tensor(depth), torch.tensor(K4),
+                c2w=torch.linalg.inv(torch.tensor(w2c))).numpy()
+            be.seed(i, pm[::2, ::2], img[::2, ::2].astype(np.float32) / 255.0,
+                    np.ones((H // 2, W // 2), bool), 0)
+    be.current_window = list(range(views))
+    return be
+
+
+def _host_calls(fn):
+    """Run ``fn`` under ``torch.profiler``: (kernel launches, host waits)
+    among its CUDA runtime and driver calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    waits = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaMemcpy", "cuStreamSynchronize",
+             "cuCtxSynchronize")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    return (sum("Launch" in n for n in names),
+            sum(n in waits for n in names) - 1)   # the closing synchronize
+
+
+def render_graph_phase(card):
+    """Phase 16 (see the module docstring)."""
+    import torch
+    from cut3r_slam_tpu_torch import full_f32
+    from cut3r_slam_tpu_torch.slam import render_graph
+    from cut3r_slam_tpu_torch.utils.profiling import StageTimer, attach
+    window = list(range(RG_VIEWS))
+    eager_run = render_graph.run
+    capture_s = []
+    init = render_graph._Graphed.__init__
+
+    def timed_init(self, *a, **k):
+        t0 = time.perf_counter()
+        init(self, *a, **k)
+        torch.cuda.synchronize()
+        capture_s.append(time.perf_counter() - t0)
+
+    def call(be):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in be.optimization_steps(RG_ITERS, window):
+            pass
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / RG_ITERS
+
+    out = {}
+    with full_f32():
+        # one untimed call first: the kernels built and loaded
+        render_graph.run = lambda body, cfg, x: body(cfg, x)
+        call(window_mapper())
+        for mode in ("eager", "graphed"):
+            render_graph.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            render_graph.run = (lambda body, cfg, x: body(cfg, x)) \
+                if mode == "eager" else eager_run
+            render_graph._Graphed.__init__ = timed_init
+            timer = StageTimer()
+            prev = attach(timer)
+            try:
+                be = window_mapper()
+                alive = int(be.arena.alive.sum())
+                first = call(be)
+                before = dict(timer.counters)
+                launches, waits = _host_calls(lambda: call(be))
+                second = call(be)
+            finally:
+                attach(prev)
+                render_graph.run = eager_run
+                render_graph._Graphed.__init__ = init
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            peak = torch.cuda.max_memory_allocated()
+            render_graph.clear()
+            gc.collect()
+            held -= torch.cuda.memory_allocated()
+            c = timer.counters
+            out[mode] = ({k: v.detach().clone() for k, v in
+                          be.arena.params().items()},
+                         be.cams.w2c.clone(), be.cams.exposure_a.clone(),
+                         be.cams.exposure_b.clone())
+            log(f"[graphs] {mode}: {alive} alive of {be.cfg.capacity}, "
+                f"window V = {RG_VIEWS}: {first:.1f} ms an iteration (first "
+                f"call), {second:.1f} ms (third call); "
+                f"{launches / RG_ITERS:.1f} launches and "
+                f"{waits / RG_ITERS:.2f} host waits an iteration (second "
+                f"call, profiled); peak {peak / 1e9:.3f} GB, graphs hold "
+                f"{held / 1e9:.3f} GB; counters {dict(c)} | {card}")
+            if mode == "graphed":
+                steady = {k: c.get(k, 0) - before.get(k, 0)
+                          for k in ("render.graph.capture",
+                                    "render.graph.replay",
+                                    "render.graph.eager")}
+                if not c.get("render.graph.capture") \
+                        or not c.get("render.graph.replay"):
+                    fail(f"phase 16: the graphed run did not capture and "
+                         f"replay: {dict(c)}")
+                if steady["render.graph.capture"] \
+                        or steady["render.graph.eager"]:
+                    fail(f"phase 16: a warm call captured or ran eagerly: "
+                         f"{steady}")
+                log(f"[graphs] {len(capture_s)} captures, "
+                    f"{', '.join(f'{1e3 * s:.1f}' for s in capture_s)} ms")
+    names = ("Gaussian parameters", "poses", "exposure a", "exposure b")
+    for name, a, b in zip(names, out["eager"], out["graphed"]):
+        pairs = a.items() if isinstance(a, dict) else [("", a)]
+        for k, v in pairs:
+            w = b[k] if k else b
+            if not torch.equal(v, w):
+                fail(f"phase 16: graphed {name} {k} differ from eager by "
+                     f"{float((v - w).abs().max()):.3e}")
+    log("[graphs] eager and graphed window optimizations: Gaussians, poses "
+        "and exposures torch.equal")
+
+
 def planned_bins_phase(G, card):
     """Phase 15 (see the module docstring)."""
     import torch
@@ -3777,6 +3938,12 @@ def main():
     planned_bins_phase(G, card)
 
     mark("phase 15")
+    # 16. the mapping window's gradient renders as CUDA graphs -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    render_graph_phase(card)
+
+    mark("phase 16")
 
     kernels = []
     for name, replaces in (

@@ -144,8 +144,10 @@ def se3_act(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 def _homogeneous(R, t):
     top = torch.cat([R, t[..., None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=t.dtype,
-                          device=t.device).expand(t.shape[:-1] + (1, 4))
+    # the [0, 0, 0, 1] row made from t on its device: no host-to-device
+    # copy, so no host wait and nothing a CUDA graph capture refuses
+    bottom = torch.cat([torch.zeros_like(t), torch.ones_like(t[..., :1])],
+                       -1)[..., None, :]
     return torch.cat([top, bottom], -2)
 
 

@@ -6,6 +6,8 @@ pose-delta gradients flow through ``SE3_exp(deltas) @ w2c`` without the
 kernels needing pose derivatives. ``render_view`` / ``render_window``
 render through ``ops/gs_raster_cuda`` on every device: the blend runs the
 CUDA kernels for CUDA tensors and their plain versions for CPU tensors.
+A gradient ``render_window`` on the card replays CUDA graphs of its
+forward and backward (``render_graph``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from ..ops.gs_raster import RasterizeConfig, compute_bins
 from ..ops.gs_raster_cuda import rasterize_cuda, rasterize_cuda_multi
 from ..geometry.quaternion import matrix_to_quat, xyzw_to_wxyz
+from . import render_graph
 from .camera import se3_delta_to_matrix
 from .gaussian_map import SH2RGB
 
@@ -80,13 +83,30 @@ def render_window(params, alive, w2c_base, K4, cfg: RasterizeConfig,
                   means2d_probe=None):
     """Render V views through ONE fused blend (and one backward).
     w2c_base (V, 4, 4); trans/rot_deltas (V, 3) optional. Returns stacked
-    (V, H, W, ...) maps."""
+    (V, H, W, ...) maps. A gradient render on a CUDA device (grad mode on,
+    an input requiring a gradient) replays its forward and its backward
+    as CUDA graphs (``render_graph``); any other runs eagerly."""
+    x = {f"p.{k}": v for k, v in params.items()}
+    x.update(alive=alive, w2c=w2c_base, K4=K4, t=trans_deltas, r=rot_deltas,
+             probe=means2d_probe)
+    x.update((f"bins.{i}", b) for i, b in enumerate(bins or ()))
+    x = {k: v for k, v in x.items() if v is not None}
+    if w2c_base.is_cuda and torch.is_grad_enabled() \
+            and any(v.requires_grad for v in x.values()):
+        return render_graph.run(_window, cfg, x)
+    return _window(cfg, x)
+
+
+def _window(cfg: RasterizeConfig, x):
+    """``render_window``'s body over its named inputs ``x``."""
+    params = {k[2:]: v for k, v in x.items() if k.startswith("p.")}
+    bins = tuple(v for k, v in x.items() if k.startswith("bins.")) or None
     means_cam, quats_cam = transform_to_frame(
-        params, _posed(w2c_base, trans_deltas, rot_deltas))
-    scales, opac, colors = _attrs(params, alive)
+        params, _posed(x["w2c"], x.get("t"), x.get("r")))
+    scales, opac, colors = _attrs(params, x["alive"])
     return rasterize_cuda_multi(means_cam, quats_cam, scales, opac, colors,
-                                K4, cfg, bins=bins,
-                                means2d_probe=means2d_probe)
+                                x["K4"], cfg, bins=bins,
+                                means2d_probe=x.get("probe"))
 
 
 @torch.no_grad()

@@ -23,7 +23,7 @@ import time
 from collections import defaultdict
 from typing import Dict, Optional
 
-__all__ = ["StageTimer", "timed", "attach", "span", "count"]
+__all__ = ["StageTimer", "timed", "attach", "span", "count", "held_counts"]
 
 _NOOP = contextlib.nullcontext()
 _timer = None
@@ -55,6 +55,36 @@ def count(name: str, n: int = 1):
     add = getattr(t, "count", None)
     if add is not None:
         add(name, n)
+
+
+class _Held:
+    """Stands in for the attached timer inside ``held_counts``: spans go
+    through to it, counts are kept."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    def __call__(self, name: str):
+        return _NOOP if self.inner is None else self.inner(name)
+
+    def count(self, name: str, n: int = 1):
+        self.counts[name] += n
+
+
+@contextlib.contextmanager
+def held_counts():
+    """Inside the block ``count`` adds to the dict it yields instead of
+    the attached timer's counters; spans still reach the timer. A CUDA
+    graph's capture runs no work, so it holds the counts back and each
+    replay gives them."""
+    global _timer
+    held = _Held(_timer)
+    _timer = held
+    try:
+        yield held.counts
+    finally:
+        _timer = held.inner
 
 
 class StageTimer:
