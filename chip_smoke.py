@@ -210,16 +210,15 @@ Phases (any failure exits nonzero, and no result line is printed):
 15. the cached bin plan: on phase 14's micro-bench arena (2^17 Gaussians,
    384x512) the render and the gradient of ``color.mean() +
    0.1 depth.mean()`` through a ``compute_bin_plan`` (the plan's tile
-   order, the planned pack backward) on the card, against fresh bins and
-   cached bins without a plan on the card (maps within 1e-5; gradients
-   within 5e-4 of the parameter's max |grad|, the micro-bench's K2 bound;
-   the quaternions', zero up to rounding for the isotropic arena, within
-   5e-4 of the largest gradient of any parameter) and against the
-   planned render on the CPU (the colour as K1 against the plain blend
-   above; gradients within 5e-3 of their max, as K1 / K2 against the
-   plain versions feed them); the planned gather must run on the card and
-   K1 / K2 launch; the planned and cached-bins gradient times are
-   printed. Then the full-width CUT3R loads its state_dict through
+   order) on the card, against fresh bins and cached bins without a plan
+   on the card (maps within 1e-5; gradients within 5e-4 of the
+   parameter's max |grad|, the micro-bench's K2 bound; the quaternions',
+   zero up to rounding for the isotropic arena, within 5e-4 of the
+   largest gradient of any parameter) and against the planned render on
+   the CPU (the colour as K1 against the plain blend above; gradients
+   within 5e-3 of their max, as K1 / K2 against the plain versions feed
+   them); K1, K2 and K3 must launch; the planned and cached-bins gradient
+   times are printed. Then the full-width CUT3R loads its state_dict through
    ``cast_params_bf16`` and runs its bf16 forward over two frames:
    finite, the same shapes, within 5e-2 of max |output| of the f32-stored
    weights' forward;
@@ -3585,25 +3584,17 @@ def planned_bins_phase(G, card):
     from cut3r_slam_tpu_torch.models.convert import cast_params_bf16
     from cut3r_slam_tpu_torch.models.cut3r import normalize_images
     t_phase = time.perf_counter()
-    calls = []
-    planned = G._PlannedGather.apply
-    G._PlannedGather.apply = lambda *a: calls.append(a[0].device.type) \
-        or planned(*a)
-    try:
-        with full_f32():
-            for k in G.LAUNCHES:
-                G.LAUNCHES[k] = 0
-            res, fns = planned_grads(bench, "cuda")
-            launches = dict(G.LAUNCHES)
-            if calls != ["cuda"] or min(launches.values()) <= 0:
-                fail(f"phase 15: planned gather calls {calls}, launches "
-                     f"{launches}")
-            t_plan = cuda_ms(fns["planned"], 10)
-            t_cached = cuda_ms(fns["cached"], 10)
-            t_fresh = cuda_ms(fns["fresh"], 10)
-            cpu, _ = planned_grads(bench, "cpu", ("planned",))
-    finally:
-        G._PlannedGather.apply = planned
+    with full_f32():
+        for k in G.LAUNCHES:
+            G.LAUNCHES[k] = 0
+        res, fns = planned_grads(bench, "cuda")
+        launches = dict(G.LAUNCHES)
+        if min(launches.values()) <= 0:
+            fail(f"phase 15: a kernel did not launch: {launches}")
+        t_plan = cuda_ms(fns["planned"], 10)
+        t_cached = cuda_ms(fns["cached"], 10)
+        t_fresh = cuda_ms(fns["fresh"], 10)
+        cpu, _ = planned_grads(bench, "cpu", ("planned",))
     maps_p, g_p = res["planned"]
     for ref in ("fresh", "cached"):
         maps_r, g_r = res[ref]
@@ -3628,7 +3619,7 @@ def planned_bins_phase(G, card):
             or not max(e_g.values()) <= 5e-3:
         fail(f"phase 15: planned render card vs CPU: colour {frac:.2e} off,"
              f" max {float(err.max())}; gradients {e_g}")
-    log(f"[plan] gradient at 2^17 Gaussians, 384x512: planned backward "
+    log(f"[plan] gradient at 2^17 Gaussians, 384x512: planned bins "
         f"{t_plan:.3f} ms, cached bins {t_cached:.3f} ms, fresh bins "
         f"{t_fresh:.3f} ms; launches {launches} | {card}")
     del res, fns, cpu

@@ -314,7 +314,9 @@ def compute_bin_plan(entry_gauss, entry_mask, n_gauss: int,
     segments. The plan also fixes the occupancy-descending tile order for
     the segment: the order only balances the blend's rows, it does not
     change a result. Sorts are stable, so ties keep the JAX package's
-    order.
+    order. The port's renders read only the order: their pack backward
+    (K3, or its plain twin on the CPU) needs no segment plan, so ``perm``
+    and ``bounds`` are kept for parity with the JAX package.
 
     Returns (order, inv_order, perm, bounds):
       order (n_tiles,)      occupancy-descending tile permutation
@@ -483,7 +485,7 @@ def rasterize(means_cam, quats_wxyz, scales, opacities, colors, K4,
     depth, mdepth, coord, mcoord, normal, plus per-Gaussian radii and
     visibility. ``bins``: cached (entry_gauss, entry_mask), optionally
     followed by their ``compute_bin_plan``, which this blend does not
-    need (it fixes only the blend's row order and the pack backward)."""
+    need (it fixes only the blend's row order)."""
     dev = means_cam.device
     if bg is None:
         bg = torch.zeros(3, dtype=means_cam.dtype, device=dev)

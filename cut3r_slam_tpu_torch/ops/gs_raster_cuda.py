@@ -25,11 +25,9 @@ autograd VJP of the plain forward; ``pack_backward_plain``). ``_BlendFn``
 is the autograd Function over K1 / K2, ``_PackGatherFn`` the pack gather
 with K3 as its backward. Everything else around the blend (preprocess,
 binning, the occupancy sort, the pack gather's forward and the
-image-space maps) is plain PyTorch on either device. On the card a
-gradient render's pack gather takes ``_PackGatherFn``, or, with a cached
-``compute_bin_plan``, a sum over the plan's pre-sorted segments
-(``_PlannedGather``); on the CPU, without a plan, it stays the plain
-``raw[entry_gauss]`` with torch's indexing backward.
+image-space maps) is plain PyTorch on either device. Every gradient
+render's pack gather takes ``_PackGatherFn``: its backward is K3 on the
+card and its plain twin on the CPU.
 
 Divergences from the Pallas kernel, both towards ``ops/gs_raster.rasterize``
 semantics: a pixel that stops at T_MIN stays stopped for the rest of the
@@ -429,66 +427,15 @@ def _image_maps(Opx, dsum, mdep, T, bg, K4, cfg: RasterizeConfig):
 # render entries
 # ---------------------------------------------------------------------------
 
-class _PlannedGather(torch.autograd.Function):
-    """raw (N, 16) -> raw[entry_gauss] (R, K, 16), whose backward sums the
-    entries' gradients over the segments of a cached ``compute_bin_plan``:
-    ``perm`` groups the flat entry positions by Gaussian id and ``bounds``
-    marks each Gaussian's segment, so the backward needs no index sort.
-    This is the JAX package's "segsum" reduction; its "cumsum" and "take"
-    modes compute the same sums (tests/test_gs_raster_pallas.py holds them
-    equal), so only this one is ported."""
-
-    @staticmethod
-    def forward(ctx, raw, entry_gauss, perm, bounds):
-        ctx.save_for_backward(perm, bounds)
-        ctx.n_rows = raw.shape[0]
-        return raw[entry_gauss]
-
-    @staticmethod
-    def backward(ctx, dG):
-        perm, bounds = ctx.saved_tensors
-        with span("raster.pack_bwd"):
-            ds = dG.reshape(-1, dG.shape[-1])[perm.long()]
-            idx = torch.arange(ds.shape[0], device=ds.device,
-                               dtype=bounds.dtype)
-            # entry i belongs to the Gaussian p with bounds[p] <= i <
-            # bounds[p + 1]; the masked entries past bounds[-1] add nothing
-            seg = torch.searchsorted(bounds, idx, right=True) - 1
-            ds = torch.where((idx >= bounds[-1])[:, None],
-                             torch.zeros_like(ds), ds)
-            dRaw = ds.new_zeros(ctx.n_rows, ds.shape[1]).index_add_(
-                0, seg.clamp(max=ctx.n_rows - 1), ds)
-        return dRaw, None, None, None
-
-
-def _plan_flat(plan, P, nt, K):
-    """One (perm, bounds) over the V * n_tiles sorted rows from V stacked
-    per-view plans: view v's entries and Gaussians are offset by v's
-    block. A view's plan-masked entries sit between its last Gaussian's
-    segment and the next view's and carry zero gradient."""
-    _, _, perm_v, bounds_v = plan
-    V = perm_v.shape[0]
-    ntK = nt * K
-    off = torch.arange(V, device=perm_v.device, dtype=perm_v.dtype) * ntK
-    perm = (perm_v + off[:, None]).reshape(-1)
-    bounds = torch.cat([(bounds_v[:, :P] + off[:, None]).reshape(-1),
-                        (V - 1) * ntK + bounds_v[-1, P:]])
-    return perm, bounds
-
-
 def _pack_rows(pre, colors, entry_gauss, entry_mask, order, ox1, oy1,
-               max_dup, plan=None):
+               max_dup):
     """Gather and pack the occupancy-sorted tile rows of one or more views.
     ``pre`` leaves are (V, P, ...); entry_gauss / entry_mask / order are
     (V, n_tiles, K) / (V, n_tiles); ``max_dup``: the binning's tiles per
-    Gaussian (K3's list capacity); ``plan``: V stacked
-    ``compute_bin_plan`` outputs whose order is ``order``. Returns
-    (A (V * n_tiles, K, 16), extent (V * n_tiles,) int32) in the sorted
-    row order. Counts the views by the gather's backward:
-    ``render.views.planned`` (``_PlannedGather``),
-    ``render.views.pack_kernel`` (``_PackGatherFn``: K3, CUDA only),
-    ``render.views.sorted`` (torch's sort-based indexing backward, CPU
-    only) or ``render.views.nograd``."""
+    Gaussian (K3's list capacity). Returns (A (V * n_tiles, K, 16),
+    extent (V * n_tiles,) int32) in the sorted row order. Counts the
+    views as ``render.views.grad`` (``_PackGatherFn``) or
+    ``render.views.nograd``."""
     V, P = pre["t_center"].shape[:2]
     nt, K = entry_gauss.shape[1:]
     voff = (torch.arange(V, device=entry_gauss.device) * P)[:, None, None]
@@ -497,16 +444,11 @@ def _pack_rows(pre, colors, entry_gauss, entry_mask, order, ox1, oy1,
     raw = _build_raw(pre, colors).reshape(V * P, NCH)
     eg_flat = (eg_s + voff).reshape(V * nt, K)
     em_flat = em_s.reshape(V * nt, K)
-    if plan is not None and raw.requires_grad:
-        count("render.views.planned", V)
-        G = _PlannedGather.apply(raw, eg_flat, *_plan_flat(plan, P, nt, K))
-    elif raw.requires_grad and raw.is_cuda:
-        count("render.views.pack_kernel", V)
+    if raw.requires_grad:
+        count("render.views.grad", V)
         G = _PackGatherFn.apply(raw, eg_flat, em_flat, max_dup)
     else:
-        # backward, if any: torch's sort-based indexing backward
-        count("render.views.sorted" if raw.requires_grad
-              else "render.views.nograd", V)
+        count("render.views.nograd", V)
         G = raw[eg_flat]
     A = _assemble_A(G, ox1[order].reshape(-1), oy1[order].reshape(-1),
                     em_flat)
@@ -517,9 +459,9 @@ def _prepare(means_cam, quats_wxyz, scales, opacities, colors, K4,
              cfg: RasterizeConfig, means2d_probe, bins):
     """Preprocess, bin (or take cached bins), occupancy-sort and pack V
     views; means_cam (V, P, 3). ``bins``: stacked (V, ...) cached
-    (entry_gauss, entry_mask), optionally followed by their plans, whose
-    tile order then replaces the fresh occupancy sort. Returns
-    (pre, A, extent, inv_order)."""
+    (entry_gauss, entry_mask), optionally followed by their
+    ``compute_bin_plan`` outputs, whose tile order then replaces the fresh
+    occupancy sort. Returns (pre, A, extent, inv_order)."""
     dev = means_cam.device
     V = means_cam.shape[0]
     with span("raster.preprocess"):
@@ -537,21 +479,20 @@ def _prepare(means_cam, quats_wxyz, scales, opacities, colors, K4,
         entry_mask = entry_mask & torch.gather(
             pre["valid"], 1, entry_gauss.reshape(V, -1)).reshape(
                 entry_gauss.shape)
-    plan = None if bins is None or len(bins) == 2 else bins[2:]
-    if plan is None:
+    if bins is None or len(bins) == 2:
         # occupancy sort per view: busy tiles launch first (load balance
         # only; every row blends independently)
         counts = entry_mask.sum(2)
         order = torch.argsort(-counts, dim=1, stable=True)
         inv_order = torch.argsort(order, dim=1)
     else:
-        # the plan's order, fixed at bin time, keeps its permutation valid;
-        # the fresh validity above still masks entries
-        order, inv_order = plan[0].long(), plan[1].long()
+        # the plan's order, fixed at bin time; the fresh validity above
+        # still masks entries
+        order, inv_order = bins[2].long(), bins[3].long()
     ox1, oy1 = _tile_origins(cfg, dev)
     with span("raster.pack"):
         A, extent = _pack_rows(pre, colors, entry_gauss, entry_mask, order,
-                               ox1, oy1, cfg.max_dup, plan)
+                               ox1, oy1, cfg.max_dup)
     return pre, A, extent, inv_order
 
 
@@ -598,7 +539,8 @@ def _single(maps):
 
 
 def _batched(bins):
-    """One view's cached bins (and plan) with a leading view axis."""
+    """One view's cached bins (2 or 6 items, as ``check_bins`` takes
+    them) with a leading view axis."""
     check_bins(bins)
     return None if bins is None else tuple(b[None] for b in bins)
 
@@ -610,8 +552,9 @@ def rasterize_cuda(means_cam, quats_wxyz, scales, opacities, colors, K4,
     Outputs color, alpha, depth, mdepth, normal (H, W, ...) and per-Gaussian
     radii / visibility. ``bins``: cached (entry_gauss, entry_mask) from
     ``compute_bins``, optionally followed by their ``compute_bin_plan``
-    (order, inv_order, perm, bounds); ``means2d_probe``: (P, 2) zeros whose
-    gradient is the viewspace positional gradient."""
+    (order, inv_order, perm, bounds), whose order replaces the occupancy
+    sort; ``means2d_probe``: (P, 2) zeros whose gradient is the viewspace
+    positional gradient."""
     probe = None if means2d_probe is None else means2d_probe[None]
     b = _batched(bins)
     return _single(_rasterize_impl(

@@ -11,8 +11,10 @@ registration. The kernel itself runs only on the card
   the attribute rows bitwise the gradient of the plain gather
   ``raw[entry_gauss]``; the masked-out entries' cotangents are exactly
   zero.
-* CPU renders keep the plain gather: they count ``render.views.sorted``
-  and never ``render.views.pack_kernel``, and launch nothing.
+* CPU gradient renders take ``_PackGatherFn``, as the card's do: they
+  count ``render.views.grad``, launch nothing, and give the leaves
+  bitwise the gradients of the plain gather ``raw[entry_gauss]`` with
+  torch's indexing backward.
 * ``pack_backward`` refuses malformed inputs on either device.
 """
 import ctypes
@@ -132,28 +134,41 @@ def test_pack_gather_fn_is_the_plain_gather_gradient(seed):
     assert torch.equal(d_fn, d_plain)
 
 
-def test_cpu_render_keeps_the_plain_gather(monkeypatch):
-    def refuse(*a):
-        raise AssertionError("_PackGatherFn engaged on the CPU")
-    monkeypatch.setattr(G._PackGatherFn, "apply", refuse)
+def _grad_render(monkeypatch, gather):
+    """The leaves, their gradients filled, of a two-view CPU render whose
+    pack gather is ``gather`` in place of ``_PackGatherFn.apply``."""
+    monkeypatch.setattr(G._PackGatherFn, "apply", gather)
+    ts = [t.requires_grad_(True) for t in _scene()]
+    out = G.rasterize_cuda_multi(*ts, torch.tensor(K4), CFG)
+    (out["color"].sum() + out["depth"].sum()).backward()
+    return ts
+
+
+def test_cpu_render_takes_the_pack_gather_fn(monkeypatch):
+    fn = G._PackGatherFn.apply
+    calls = []
     launches = dict(G.LAUNCHES)
     timer = StageTimer()
     prev = attach(timer)
     try:
-        ts = [t.requires_grad_(True) for t in _scene()]
-        out = G.rasterize_cuda_multi(*ts, torch.tensor(K4), CFG)
-        (out["color"].sum() + out["depth"].sum()).backward()
+        ts = _grad_render(monkeypatch, lambda *a: calls.append(
+            a[0].device.type) or fn(*a))
         with torch.no_grad():
             G.rasterize_cuda_multi(*[t.detach() for t in ts],
                                    torch.tensor(K4), CFG)
     finally:
         attach(prev)
-    assert timer.counters["render.views.sorted"] == 2
-    assert timer.counters["render.views.nograd"] == 2
-    assert "render.views.pack_kernel" not in timer.counters
-    assert "raster.pack_bwd" not in timer.counts
-    assert all(bool(torch.isfinite(t.grad).all()) for t in ts)
+    assert calls == ["cpu"]
+    assert {k: v for k, v in timer.counters.items()
+            if k.startswith("render.views.")} == {"render.views.grad": 2,
+                                                  "render.views.nograd": 2}
+    assert timer.counts["raster.pack_bwd"] == 1
     assert G.LAUNCHES == launches
+    # the same render through the plain gather, torch's indexing backward
+    plain = _grad_render(monkeypatch, lambda raw, eg, em, cap: raw[eg])
+    for a, b in zip(ts, plain):
+        assert bool(torch.isfinite(a.grad).all()) and bool(a.grad.any())
+        assert torch.equal(a.grad, b.grad)
 
 
 def test_build_registers_pack_bwd():

@@ -174,7 +174,7 @@ def test_cpu_gradient_render_stays_eager(scene, timer, monkeypatch, call):
         for a, b in zip(g_new, g_old):
             assert torch.equal(a, b)
     c = timer.counters
-    assert c["render.views.sorted"] == 2 * 3 * V    # both bodies, 3 calls
+    assert c["render.views.grad"] == 2 * 3 * V      # both bodies, 3 calls
     assert not any(k.startswith("render.graph") for k in c), dict(c)
 
 
@@ -195,7 +195,7 @@ def test_no_grad_renders_stay_eager(scene, timer, monkeypatch):
     assert torch.isfinite(g).all()
     c = timer.counters
     assert c["render.views.nograd"] == 2 * 3
-    assert c["render.views.sorted"] == 1
+    assert c["render.views.grad"] == 1
 
 
 def test_held_counts_hold_counts_and_pass_spans(timer):
@@ -274,7 +274,7 @@ def test_policy_warmup_capture_replay(scene, timer, stand_in):
     assert (c["render.graph.eager"], c["render.graph.eager.warmup"],
             c["render.graph.capture"], c["render.graph.replay"]) \
         == (1, 1, 2, 2), dict(c)
-    assert c["render.views.sorted"] == 5 * 3
+    assert c["render.views.grad"] == 5 * 3
     assert timer.counts["render.graph_fwd"] == 4 == \
         timer.counts["render.graph_bwd"]
     assert _StandIn.replays == 8

@@ -165,7 +165,7 @@ def test_call_shape_equals_eager(cuda, scene, timer, shape):
             c["render.graph.capture"], c["render.graph.replay"]) \
         == (1, 1, 1, 2), dict(c)
     assert "render.graph.eager.pending" not in c
-    assert c["render.views.pack_kernel"] == 4 * V, dict(c)
+    assert c["render.views.grad"] == 4 * V, dict(c)
     assert {k: G.LAUNCHES[k] - before[k] for k in KERNELS} \
         == dict.fromkeys(KERNELS, 4)
     assert timer.counts["render.graph_fwd"] == 3
