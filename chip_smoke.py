@@ -150,7 +150,15 @@ Phases (any failure exits nonzero, and no result line is printed):
    shape: ``projective_transform`` with its Jacobians and ``corr_lookup``
    (1e-5 + 1e-5 relative), ``bundle_adjust``, ``moba`` and ``jdsa`` (1e-5
    + 1e-4 relative), one ``DroidNet`` forward at num_steps 2 (1e-4 + 1e-4
-   relative); K1, K2 and K3 must not launch; (b) ``tv_loss``, ``sobel_edges``,
+   relative); K1, K2 and K3 must not launch; (d) the dense BA's step
+   (``csrc/droid_ba.cu``) at ``droid_track``'s shapes and a small case,
+   kernel path against the plain path: two steps within 1e-4 of the
+   plain float32 path's largest entry on the CPU (the card's plain path
+   read beside it), at most 3x its distance from the float64 steps; ms a
+   call of each path, the host's enqueue time (and the buffers' part of
+   the kernel path's), device
+   operations a step, each kernel's time beside its bound (bytes at 3.35
+   TB/s, FP32 at 67 TFLOP/s); (b) ``tv_loss``, ``sobel_edges``,
    ``gaussian_blur`` (1e-6) and the robust Sim(3) of a 384x512 point-map
    pair (1e-5 on the scale, 1e-4 on R and t) card vs CPU; (c)
    ``SLAMSystem`` with ``GUI: {active: true, port: 0}`` over phase 6's
@@ -2194,6 +2202,47 @@ def droid_clip(n, h8, w8, f8, seed):
     return poses, disps, intr
 
 
+def droid_ba_case(n=21, fixedp=4, h8=48, w8=64, n_edges=290, seed=0,
+                  device="cuda"):
+    """A dense-BA input shaped as ``droid_track``'s (``DroidGraph.update``:
+    ~290 edges over a ~21-frame window, 3-4 frames fixed, the 48x64 grid):
+    every ordered pair with 0 < |i - j| <= 3, then retired copies of the
+    older frames' pairs (repeated (i, j), edges into fixed frames) up to
+    ``n_edges``; targets from the true geometry plus 0.5 px of noise,
+    confidences in (0, 1), the free poses and every disparity perturbed,
+    eta as the tracker's 0.2 x damping + 1e-7. Returns bundle_adjust's
+    positional inputs (target, weight, eta, poses, disps, intr, ii, jj, ev)
+    on ``device``."""
+    import torch
+    from cut3r_slam_tpu_torch.geometry.lie import se3_exp, se3_mul
+    from cut3r_slam_tpu_torch.geometry.projective import \
+        projective_transform
+    rng = np.random.default_rng(seed)
+    poses, disps, intr = droid_clip(n, h8, w8, w8 * 0.9, seed)
+    pairs = [(i, j) for i in range(n) for j in range(n)
+             if 0 < abs(i - j) <= 3]
+    old = [(i, j) for i, j in pairs if min(i, j) < max(n - 8, 2)]
+    while len(pairs) < n_edges:
+        pairs.append(old[len(pairs) % len(old)])
+    ii, jj = (np.asarray(x, np.int64) for x in zip(*pairs[:n_edges]))
+    t = [torch.tensor(a) for a in (poses, disps, intr, ii, jj)]
+    target = projective_transform(*t)[0].numpy()
+    target = target + 0.5 * rng.standard_normal(target.shape)
+    weight = rng.uniform(0.0, 1.0, target.shape)
+    xi = 1e-3 * rng.standard_normal((n, 6))
+    xi[:fixedp] = 0
+    poses = se3_mul(se3_exp(torch.tensor(xi, dtype=torch.float32)),
+                    t[0]).numpy()
+    disps = disps * (1 + 0.05 * rng.standard_normal(disps.shape))
+    eta = 0.2 * rng.uniform(1e-3, 1e-1, disps.shape) + 1e-7
+    arrays = [target, weight, eta, poses, disps, intr]
+    out = [torch.tensor(a, dtype=torch.float32, device=device)
+           for a in arrays]
+    return out + [torch.tensor(ii, device=device),
+                  torch.tensor(jj, device=device),
+                  torch.ones(len(ii), device=device)]
+
+
 def _within(name, got, ref, atol, rtol):
     """Fails unless |got - ref| <= atol + rtol |ref| everywhere (both on
     the CPU); returns max |got - ref| / max |ref|."""
@@ -2327,6 +2376,184 @@ def oracle_ba(h8, w8, f8):
     return e0, err(cur), ms
 
 
+# the BA step's kernels (csrc/droid_ba.cu) against the card's peaks: FP32
+# outside the tensor cores and HBM3 (the hopper-kernels guide)
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations of one edge pixel in ba_edge_kernel: the projection ~30,
+# Jj 15, Ji 108, the weighted rows 24, the H blocks 312, v 48, Ei / Ej 36,
+# Ck / wk 8 (counted from the source)
+EDGE_FLOPS_PER_PIXEL = 580
+
+
+def ba_kernel_bounds(ii, jj, fixedp, P0, HW):
+    """Least time (s) of each kernel of one BA step at these shapes: the
+    larger of its FP32 operations at 67 TFLOP/s and its bytes (each input
+    read once, each output written once) at 3.35 TB/s; ba_plan and ba_cov
+    once a call. From the plan (``ba_plan``), as the kernels see it:
+    {kernel: (seconds, "bytes" | "operations")}."""
+    import torch
+    from cut3r_slam_tpu_torch.ops.ba import ba_plan
+    E, P = len(ii), P0 - fixedp
+    n = 6 * P
+    cells = ba_plan(torch.as_tensor(ii).cpu(), torch.as_tensor(jj).cpu(),
+                    fixedp, P0).long()
+    cE = cells[6 * E:8 * E]
+    nz = torch.zeros(P * P0, dtype=torch.int64)
+    nz.index_add_(0, cE[cE >= 0], torch.ones_like(cE[cE >= 0]))
+    pres = (nz > 0).reshape(P, P0)
+    blocks = int(pres.sum())                  # nonzero E blocks
+    both = pres.int() @ pres.int().T          # (a, b): shared depth frames
+    pair_k = int(torch.tril(both).sum())      # (a, b <= a, k) products
+    f4 = 4
+    out = {}
+    eb = E * HW * (2 * 2 * f4 + 12 * f4 + 2 * f4) + P0 * HW * f4 \
+        + E * (4 * 36 + 2 * 6) * f4
+    out["ba_edge"] = (eb, E * HW * EDGE_FLOPS_PER_PIXEL)
+    landed = int((cells[:4 * E] >= 0).sum()) * 36 \
+        + int((cells[4 * E:6 * E] >= 0).sum()) * 6 \
+        + int((cE >= 0).sum()) * 6 * HW + int((cells[8 * E:] >= 0).sum()) \
+        * 2 * HW
+    gb = (landed + P * P * 36 + P * 6 + P * P0 * 6 * HW + 3 * P0 * HW) * f4
+    out["ba_gather"] = (gb, landed)
+    out["ba_schur"] = ((blocks * 6 * HW + 2 * P0 * HW + P * P * 36
+                        + n * n) * f4,
+                       pair_k * HW * (6 + 72) + blocks * HW * (6 + 12))
+    out["ba_solve"] = ((n * n + n + 2 * P0 * 7) * f4 + n * (n + 1) // 2
+                       * f4, n ** 3 // 3 + 2 * n * n)
+    out["ba_update"] = ((blocks * 6 * HW + 4 * P0 * HW) * f4,
+                        blocks * HW * 12 + 3 * P0 * HW)
+    out["ba_cov"] = ((blocks * 6 * HW + 2 * P0 * HW + n * (n + 1) // 2)
+                     * f4, P0 * HW * (n * n + n))
+    out["ba_plan"] = (2 * E * 8 + 9 * E * f4, 9 * E)
+    return {k: (max(b / PEAK_BYTES, f / PEAK_FP32),
+                "bytes" if b / PEAK_BYTES >= f / PEAK_FP32 else "operations")
+            for k, (b, f) in out.items()}
+
+
+def _ba_profile(fn, calls=5):
+    """Device time by kernel name (s a call) and the device operations a
+    call, from torch.profiler over ``calls`` calls of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name, ops = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ops += 1
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + \
+                e.duration_ns() * 1e-9 / calls
+    return by_name, ops / calls
+
+
+def droid_ba_phase(card):
+    """(d) The dense BA's step on the card at ``droid_track``'s shapes
+    (``droid_ba_case``: 290 edges, 21 frames, 4 fixed, 48x64) and at a
+    small case: the kernel path (csrc/droid_ba.cu) against the plain path
+    (an input that requires a gradient sends a card call there; the same
+    plain steps on the CPU in float32 and float64): two steps' poses,
+    disparities and covariance within 1e-4 of the CPU's plain path's
+    relative to the largest entry (the card's plain path read beside it),
+    their distance from the float64 steps at most 3x the plain float32
+    path's; ms a call (2 steps) of each path by CUDA events, the host's
+    enqueue time of each (the kernel path's buffers' part of it), device
+    operations a step, each kernel's time beside its bound."""
+    import torch
+    from cut3r_slam_tpu_torch.ops import ba
+    from cut3r_slam_tpu_torch.ops.ba import bundle_adjust
+    res = {}
+    for name, case in (("small", dict(n=5, fixedp=2, h8=12, w8=16,
+                                       n_edges=18, seed=7)),
+                       ("droid_track", dict(seed=8))):
+        args = droid_ba_case(**case)
+        fixedp = case.get("fixedp", 4)
+        cpu = [a.cpu() for a in args]
+        f64 = [a.double() if a.is_floating_point() else a for a in cpu]
+
+        def kernel():
+            return bundle_adjust(*args, fixedp=fixedp, steps=2)
+
+        def plain():
+            p = args[3].clone().requires_grad_()
+            with torch.no_grad():
+                return bundle_adjust(*args[:3], p, *args[4:], fixedp=fixedp,
+                                     steps=2)
+
+        with torch.no_grad():
+            kp, kd, kc = kernel()
+            cp, cd, cc = bundle_adjust(*cpu, fixedp=fixedp, steps=2)
+            dp, dd, _ = bundle_adjust(*f64, fixedp=fixedp, steps=2)
+        gp, gd, gc = plain()
+        errs = {}
+        for what, got, ref in (("poses", kp, cp), ("disps", kd, cd),
+                               ("dzcov", kc, cc), ("card plain poses", gp,
+                                                   cp),
+                               ("card plain disps", gd, cd),
+                               ("card plain dzcov", gc, cc)):
+            got, ref = got.detach().double().cpu(), ref.double()
+            errs[what] = float((got - ref).abs().max()
+                               / ref.abs().max())
+            if not what.startswith("card") and not errs[what] <= 1e-4:
+                fail(f"phase 12(d): {name} kernel BA {what} {errs[what]:.3e}"
+                     " from the plain path (limit 1e-4 of the largest entry)")
+        ratio = {}
+        for what, got, ref, x0 in (("poses", kp, cp, cpu[3]),
+                                   ("disps", kd, cd, cpu[4])):
+            truth = (dp if what == "poses" else dd) - x0.double()
+            dk = float(((got.cpu().double() - x0.double()) - truth).norm())
+            dc = float(((ref.double() - x0.double()) - truth).norm())
+            ratio[what] = dk / max(dc, 1e-30)
+            if not ratio[what] <= 3.0:
+                fail(f"phase 12(d): {name} kernel BA {what} step {dk:.3e} "
+                     f"from the float64 step, {ratio[what]:.2f}x the plain "
+                     "float32 path's (limit 3x)")
+        k_ms, p_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
+
+        def host_ms(fn, n=10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t = (time.perf_counter() - t0) / n
+            torch.cuda.synchronize()
+            return 1e3 * t
+        with torch.no_grad():
+            kh = host_ms(kernel)
+            P0, HW = args[3].shape[0], args[4].shape[1] * args[4].shape[2]
+            kb = host_ms(lambda: ba._step_work(len(args[6]), P0 - fixedp,
+                                               P0, HW, args[6].device))
+        ph = host_ms(plain, 3)
+        for k in ba.LAUNCHES:
+            ba.LAUNCHES[k] = 0
+        k_names, k_ops = _ba_profile(kernel)
+        _, p_ops = _ba_profile(plain, 2)
+        launched = dict(ba.LAUNCHES)
+        ii, jj = args[6].cpu().numpy(), args[7].cpu().numpy()
+        bounds = ba_kernel_bounds(ii, jj, fixedp, P0, HW)
+        kern = {}
+        for k, (least, what) in bounds.items():
+            t = sum(v for n_, v in k_names.items() if k + "_kernel" in n_)
+            if k not in ("ba_plan", "ba_cov"):
+                t /= 2              # a step
+            kern[k] = {"ms": 1e3 * t, "bound_ms": 1e3 * least, "by": what}
+        res[name] = {"errs": errs, "ratio_to_plain32": ratio,
+                     "kernel_ms": k_ms, "plain_ms": p_ms,
+                     "kernel_host_ms": kh, "kernel_buffers_host_ms": kb,
+                     "plain_host_ms": ph,
+                     "ops_per_step": {"kernel": k_ops / 2,
+                                      "plain": p_ops / 2},
+                     "launches": launched, "kernels": kern,
+                     "edges": len(ii), "frames": int(P0)}
+        log(f"[droid BA {name}] {json.dumps(res[name])} | {card}")
+    return res
+
+
 def droid_phase(G, card, frames):
     """(a) DroidNet at its full widths (fnet 128, cnet 256, 128-plane GRU;
     seeded random weights) on 7 of phase 6's frames at 384x512 (1/8 grid
@@ -2387,6 +2614,7 @@ def droid_phase(G, card, frames):
              "(below 10x)")
     launches = dict(G.LAUNCHES)
     errs = droid_card_vs_cpu()
+    droid_ba_phase(card)
     log(f"[droid] DroidNet {n_params / 1e6:.2f} M params (random, seed 0), "
         f"{DROID_FRAMES} frames {H}x{W} (grid {h8}x{w8}), {len(ii)} edges, "
         f"fixedp 2, {DROID_STEPS} GRU steps x 2 BA iterations: forward "

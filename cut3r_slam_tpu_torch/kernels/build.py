@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each library's entry point: (symbol, argtypes)
 SOURCES: Dict[str, tuple] = {
     # A, extent, R, K, nC, O, dsum, mdep, tleft, tchk, stream
@@ -47,6 +48,12 @@ SOURCES: Dict[str, tuple] = {
     # dG, entry_gauss, entry_mask, E, n_rows, cap, work, dRaw, stream
     "gs_pack_bwd": ("gs_pack_bwd",
                     [_P, _P, _P, _I, ctypes.c_longlong, _I, _P, _P, _P]),
+    # poses_in, poses_out, disps_in, disps_out, intr, target, weight, ev,
+    # eta, ii, jj, cells, E, P0, fixedp, ht, wd, ep, lm, plan, with_cov,
+    # HB, VB, EB, CW, H, v, Ed, nzE, Q, w, S, rhs, Lp, dx, status, dzcov,
+    # stream
+    "droid_ba": ("droid_ba_step",
+                 [_P] * 12 + [_I] * 5 + [_F, _F, _I, _I] + [_P] * 16 + [_P]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

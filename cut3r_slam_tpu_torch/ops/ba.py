@@ -15,6 +15,17 @@ a zero pose update, dz = Q w, a NaN covariance). Edge lists are
 fixed-capacity with a validity mask; cells out of range (the fixed
 frames) go to a sentinel segment that is dropped. Every solve runs under
 ``full_f32``: a Schur complement in TF32 is useless.
+
+On the card, ``bundle_adjust`` with no input that requires a gradient
+(every call of the DROID tracker, which runs under ``no_grad``) takes each
+step as the hand-written kernels of ``csrc/droid_ba.cu``, the same
+mathematics in float32 (``_bundle_adjust_cuda``); otherwise, and always on
+the CPU, the plain steps, which are also the kernels' plain version. The
+kernels gather the per-edge terms into the dense blocks by a plan that
+they build on the device from ``ii`` / ``jj``; ``ba_plan`` and
+``plan_gather`` are the plan's and the gather's plain versions.
+``LAUNCHES`` counts the kernels launched; the counters ``ba.steps.kernel``
+/ ``ba.steps.plain`` count the steps by path.
 """
 from __future__ import annotations
 
@@ -23,8 +34,15 @@ import torch
 from .. import full_f32
 from ..geometry.lie import se3_retr
 from ..geometry.projective import projective_transform
+from ..utils.profiling import count
 
-__all__ = ["bundle_adjust", "moba", "jdsa", "schur_solve", "block_solve"]
+__all__ = ["bundle_adjust", "moba", "jdsa", "schur_solve", "block_solve",
+           "ba_plan", "plan_gather", "LAUNCHES"]
+
+# kernels of csrc/droid_ba.cu launched, by name: those of every step, the
+# plan on a call's first step, the covariance on its last
+_STEP_KERNELS = ("ba_edge", "ba_gather", "ba_schur", "ba_solve", "ba_update")
+LAUNCHES = dict.fromkeys(("ba_plan",) + _STEP_KERNELS + ("ba_cov",), 0)
 
 
 def _damp(H, ep=0.1, lm=1e-4):
@@ -151,8 +169,16 @@ def bundle_adjust(target: torch.Tensor, weight: torch.Tensor,
     """Full BA. poses (P0, 7) w2c; disps (P0, H, W); target / weight
     (E, H, W, 2); ii / jj (E,) with the ``edge_valid`` mask; eta
     (P0, H, W) damping. Every frame's depth is a variable. Returns
-    (poses, disps, dzcov of the last step)."""
+    (poses, disps, dzcov of the last step). On the card with no input that
+    requires a gradient, the kernels of ``csrc/droid_ba.cu``."""
     P0 = poses.shape[0] if n_frames is None else n_frames
+    if poses.is_cuda and not any(t.requires_grad for t in (
+            target, weight, eta, poses, disps, intrinsics, edge_valid)):
+        count("ba.steps.kernel", steps)
+        return _bundle_adjust_cuda(target, weight, eta, poses, disps,
+                                   intrinsics, ii, jj, edge_valid, fixedp,
+                                   P0, steps)
+    count("ba.steps.plain", steps)
     ht, wd = disps.shape[-2:]
     HW = ht * wd
     E_n = ii.shape[0]
@@ -181,6 +207,154 @@ def bundle_adjust(target: torch.Tensor, weight: torch.Tensor,
         poses = torch.cat([poses[:fixedp], se3_retr(poses[fixedp:], dx[0])])
         disps = _retract_disps(disps, dz[0].reshape(P0, ht, wd))
     return poses, disps, dzcov
+
+
+def ba_plan(ii: torch.Tensor, jj: torch.Tensor, fixedp: int,
+            n_frames: int) -> torch.Tensor:
+    """The kernels' gather plan (the plain version of ``ba_plan_kernel``,
+    which builds it on the card from ``ii`` / ``jj``, with no host read):
+    the output cell of each of the 9E per-edge contributions, -1 where it
+    is dropped (a fixed frame's pose), int32 (9E,), contribution c = t E + e
+    of edge e:
+
+    - t 0-3: the 6x6 blocks Hii, Hij, Hji, Hjj at H cell row * P + col,
+      (row, col) = (a_i, a_i), (a_i, a_j), (a_j, a_i), (a_j, a_j);
+    - t 4-5: vi, vj at v cell a_i, a_j;
+    - t 6-7: Ei, Ej at E cell a_i * P0 + i, a_j * P0 + i (the depth of an
+      edge is frame i's);
+    - t 8: Ck and wk at C / w cell i,
+
+    with a_f = f - fixedp the free-frame row and P = n_frames - fixedp.
+    Each cell sums its contributions in ascending c."""
+    P0 = n_frames
+    P = P0 - fixedp
+    f = torch.stack([ii, jj]).long() - fixedp
+    free = (f >= 0) & (f < P)
+    ki = ii.long()
+    kin = (ki >= 0) & (ki < P0)
+    ai, aj, fi, fj = f[0], f[1], free[0], free[1]
+    h = torch.where(torch.stack([fi, fi & fj, fj & fi, fj]),
+                    torch.stack([ai, ai, aj, aj]) * P
+                    + torch.stack([ai, aj, ai, aj]), -1)
+    v = torch.where(free, f, -1)
+    e = torch.where(free & kin, f * P0 + ki, -1)
+    c = torch.where(kin, ki, -1)
+    return torch.cat([h, v, e, c[None]]).reshape(-1).int()
+
+
+def plan_gather(cells, HB, VB, EB, CW, eta, P: int, P0: int):
+    """Plain version of ``ba_gather_kernel``: the per-edge terms HB (4, E,
+    36), VB (2, E, 6), EB (2, E, 6, HW), CW (E, 2, HW) summed by the plan
+    ``cells`` into H (P, P, 6, 6), v (P, 6), E (P, P0, 6, HW), the
+    contributions counted into each E block (P, P0), Q = 1 / C (P0, HW)
+    with C = (sum Ck + eta) + 1e-7, and w (P0, HW)."""
+    E = HB.shape[1]
+    HW = EB.shape[-1]
+    groups = ((HB, 0, P * P), (VB, 4, P), (EB, 6, P * P0), (CW[None], 8, P0))
+    out = []
+    for rows, t0, n in groups:
+        cl = cells[t0 * E:(t0 + rows.shape[0]) * E].long()
+        flat = rows.reshape((-1,) + rows.shape[2:])
+        out.append(_scatter_vec(flat[None], cl, n)[0])
+        if t0 == 6:
+            ok = (cl >= 0) & (cl < n)
+            out.append(torch.zeros(n + 1, dtype=torch.int32,
+                                   device=cl.device).index_add_(
+                0, torch.where(ok, cl, n), ok.int())[:-1].reshape(P, P0))
+    H, v, Ed, nz, Cw = out
+    Q = 1.0 / (Cw[:, 0] + eta.reshape(P0, HW) + 1e-7)
+    return (H.reshape(P, P, 6, 6), v, Ed.reshape(P, P0, 6, HW), nz, Q,
+            Cw[:, 1])
+
+
+def _stream_ptr(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _step_work(E: int, P: int, P0: int, HW: int, device) -> dict:
+    """The buffers of ``droid_ba_step`` (csrc/droid_ba.cu): the plan cells
+    (9E, as ``ba_plan``'s), the per-edge terms HB (4, E, 36), VB (2, E, 6),
+    EB (2, E, 6, HW), CW (E, 2, HW); the gathered H (P, P, 36), v (P, 6),
+    Ed (P, P0, 6, HW), nzE (P, P0), Q and w (P0, HW); the Schur system S
+    (n, n), rhs (n); the factor Lp (the packed rows of L, then y = L^-1
+    rhs), dx (n), status (1) and dzcov (P0, HW), n = 6 P."""
+    n = 6 * P
+    shapes = {"HB": (4, E, 36), "VB": (2, E, 6), "EB": (2, E, 6, HW),
+              "CW": (E, 2, HW), "H": (P, P, 36), "v": (P, 6),
+              "Ed": (P, P0, 6, HW), "Q": (P0, HW), "w": (P0, HW),
+              "S": (n, n), "rhs": (n,), "Lp": ((n + 1) * (n + 2) // 2,),
+              "dx": (n,), "dzcov": (P0, HW)}
+    work = {k: torch.empty(v, dtype=torch.float32, device=device)
+            for k, v in shapes.items()}
+    work["cells"] = torch.empty(9 * E, dtype=torch.int32, device=device)
+    work["nzE"] = torch.empty(P, P0, dtype=torch.int32, device=device)
+    work["status"] = torch.empty(1, dtype=torch.int32, device=device)
+    return work
+
+
+# droid_ba_step's buffer arguments, in order
+_WORK_ARGS = ("HB", "VB", "EB", "CW", "H", "v", "Ed", "nzE", "Q", "w", "S",
+              "rhs", "Lp", "dx", "status", "dzcov")
+
+
+def _bundle_adjust_cuda(target, weight, eta, poses, disps, intrinsics, ii,
+                        jj, edge_valid, fixedp: int, P0: int, steps: int,
+                        work: dict = None):
+    """``bundle_adjust``'s steps as ``csrc/droid_ba.cu``'s kernels, damped
+    as ``schur_solve`` damps the plain step (ep 0.1, lm 1e-4). Every input
+    on one CUDA device, float32 (``ii`` / ``jj`` any integer type);
+    malformed inputs raise. One call of ``droid_ba_step`` a step, reading
+    the last step's poses and disparities and writing fresh ones: five
+    launches, and the plan's on the first step, the depth covariance's on
+    the last. ``work`` (``_step_work``'s buffers, made here when None)
+    holds the last step's intermediates afterwards."""
+    dev = poses.device
+    ht, wd = disps.shape[-2:]
+    HW, E, P = ht * wd, ii.shape[0], P0 - fixedp
+    intr = intrinsics.expand(P0, 4) if intrinsics.dim() == 1 else intrinsics
+    ins = {"target": (target, (E, ht, wd, 2)),
+           "weight": (weight, (E, ht, wd, 2)),
+           "eta": (eta.reshape(P0, ht, wd), (P0, ht, wd)),
+           "poses": (poses, (P0, 7)), "disps": (disps, (P0, ht, wd)),
+           "intrinsics": (intr, (P0, 4)),
+           "edge_valid": (edge_valid.to(torch.float32), (E,))}
+    for name, (t, shape) in ins.items():
+        if t.dtype != torch.float32 or t.device != dev \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected float32 {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not 0 <= fixedp <= P0 or jj.shape != ii.shape or ii.device != dev:
+        raise ValueError(f"fixedp {fixedp} of {P0} frames, ii "
+                         f"{tuple(ii.shape)} / jj {tuple(jj.shape)}")
+    if steps < 1:
+        return poses, disps, None
+    (target, weight, eta, poses_in, disps_in, intr, ev) = (
+        t.contiguous() for t, _ in ins.values())
+    ii, jj = ii.long().contiguous(), jj.long().contiguous()
+    from ..kernels import load
+    lib = load("droid_ba")
+    if work is None:
+        work = _step_work(E, P, P0, HW, dev)
+    bufs = [work[k].data_ptr() for k in _WORK_ARGS]
+    outs = [(torch.empty_like(poses_in), torch.empty_like(disps_in))
+            for _ in range(min(steps, 2))]
+    p_in, d_in = poses_in, disps_in
+    for s in range(steps):
+        p_out, d_out = outs[s % 2]
+        last = s == steps - 1
+        rc = lib.droid_ba_step(
+            p_in.data_ptr(), p_out.data_ptr(), d_in.data_ptr(),
+            d_out.data_ptr(), intr.data_ptr(), target.data_ptr(),
+            weight.data_ptr(), ev.data_ptr(), eta.data_ptr(), ii.data_ptr(),
+            jj.data_ptr(), work["cells"].data_ptr(), E, P0, fixedp, ht, wd,
+            0.1, 1e-4, int(s == 0), int(last), *bufs, _stream_ptr(dev))
+        for k in ((("ba_plan",) if s == 0 else ()) + _STEP_KERNELS
+                  + (("ba_cov",) if last else ())):
+            LAUNCHES[k] += 1
+        if rc != 0:
+            raise RuntimeError(f"droid_ba_step launch failed: cudaError {rc}")
+        p_in, d_in = p_out, d_out
+    return p_in, d_in, work["dzcov"]
 
 
 def _bilinear_upsample_with_jacobian(scales: torch.Tensor, ht: int,

@@ -43,7 +43,9 @@ the BA are float32.
 Spans (``utils.profiling``): ``droid.filter``, ``droid.encode``,
 ``droid.corr_build``, ``droid.update``, ``droid.corr_lookup``,
 ``droid.gru``, ``droid.ba``; counters ``droid.edges`` (active edges of
-each update), ``droid.updates``, ``droid.kf_removed``.
+each update), ``droid.ba.edges`` (the BA's edges, active and retired, of
+each update), ``droid.updates``, ``droid.kf_removed``; ``ops/ba.py``
+counts the BA's steps by path (``ba.steps.kernel``, ``ba.steps.plain``).
 """
 from __future__ import annotations
 
@@ -486,6 +488,7 @@ class DroidGraph:
             weight = torch.cat([self.weight_inac[mt], self.weight])
             eta_ba = 0.2 * v.damping[lo:hi] + EP
             with span("droid.ba"):
+                count("droid.ba.edges", len(ii_all))
                 p, d, _ = bundle_adjust(
                     target, weight, eta_ba, poses, disps, intr,
                     torch.as_tensor(ii_all - lo, device=dev),
