@@ -1843,7 +1843,8 @@ def prior_live_loop(G, card, frames, K4):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     kf = slam.keyframes
     n = kf.count
-    depth, normal = kf.prior_depth[:n], kf.prior_normal[:n]
+    depth = kf.prior_depth[:n].cpu().numpy()
+    normal = kf.prior_normal[:n].cpu().numpy()
     if events < 1:
         fail("phase 11: no mapping event ran with the prior on")
     if min(launches.values()) <= 0:

@@ -19,7 +19,7 @@ import threading
 
 import torch
 
-__all__ = ["resolve_device", "full_f32"]
+__all__ = ["resolve_device", "full_f32", "default_precision"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -38,9 +38,43 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-_F32_LOCK = threading.Lock()
-_F32_DEPTH = 0
-_F32_SAVED = None
+_PREC_LOCK = threading.Lock()
+_PREC_DEPTH = {"f32": 0, "default": 0}
+_PREC_SAVED = None
+# (matmul TF32, cuDNN TF32, cuDNN enabled) of each pinned precision
+_PREC_FLAGS = {"f32": (False, False, False), "default": (False, True, True)}
+
+
+def _backend_flags(values=None):
+    b = torch.backends
+    if values is None:
+        return b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.enabled
+    b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.enabled = values
+
+
+@contextlib.contextmanager
+def _pinned(kind):
+    """The process-wide flags of ``kind`` inside the block. The blocks are
+    counted across threads (the live viewer renders from its server
+    thread): the first block to enter saves the flags, the last to leave
+    restores them, and while any ``full_f32`` block is open its flags
+    hold."""
+    global _PREC_SAVED
+
+    def current():
+        return _PREC_FLAGS["f32" if _PREC_DEPTH["f32"] else "default"]
+    with _PREC_LOCK:
+        if not any(_PREC_DEPTH.values()):
+            _PREC_SAVED = _backend_flags()
+        _PREC_DEPTH[kind] += 1
+        _backend_flags(current())
+    try:
+        yield
+    finally:
+        with _PREC_LOCK:
+            _PREC_DEPTH[kind] -= 1
+            _backend_flags(current() if any(_PREC_DEPTH.values())
+                           else _PREC_SAVED)
 
 
 @contextlib.contextmanager
@@ -52,26 +86,18 @@ def full_f32():
     from a float64 oracle (scripts/f64_oracle_card.py). The mapping path,
     the kernel parity checks and the card-vs-CPU training checks run under
     it: the TPU kernels run their contractions at Precision.HIGHEST.
-
-    The settings are process-wide, so the blocks are counted across
-    threads (the live viewer renders from its server thread): the first
-    block to enter saves and sets them, the last to leave restores them."""
-    global _F32_DEPTH, _F32_SAVED
-    with _F32_LOCK:
-        if _F32_DEPTH == 0:
-            _F32_SAVED = (torch.backends.cuda.matmul.allow_tf32,
-                          torch.backends.cudnn.allow_tf32,
-                          torch.backends.cudnn.enabled)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cudnn.enabled = False
-        _F32_DEPTH += 1
-    try:
+    Blocks on other threads count too (``_pinned``)."""
+    with _pinned("f32"):
         yield
-    finally:
-        with _F32_LOCK:
-            _F32_DEPTH -= 1
-            if _F32_DEPTH == 0:
-                (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32,
-                 torch.backends.cudnn.enabled) = _F32_SAVED
+
+
+@contextlib.contextmanager
+def default_precision():
+    """PyTorch's default float32 precision inside the block, whatever the
+    process holds: convolutions through cuDNN with TF32 allowed, matrix
+    products in float32 with TF32 off (the precision under which
+    Omnidata's and HI-SLAM2's public code run the monocular prior). While
+    a ``full_f32`` block is open, on any thread, its flags hold: a caller
+    that asked for float32 accuracy keeps it."""
+    with _pinned("default"):
+        yield

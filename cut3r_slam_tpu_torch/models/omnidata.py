@@ -19,9 +19,18 @@ row and column go after), the max-pool pads with -inf; GroupNorm eps
 resized to (H/16, W/16) as ``jax.image.resize(..., "bilinear")`` does
 (``resize_bilinear``: a triangle filter that antialiases when it
 shrinks); the decoder's upsampling is bilinear with aligned corners.
+
+``random_omnidata`` draws a network from a seed (``init_random``'s
+scheme, then gains and values by parameter name): the stand-in for the
+public checkpoints where the repository has none.
+
+Spans (``utils.profiling``): ``omni.backbone`` (the ResNet stem and
+stages), ``omni.vit`` (the patch projection, the position grid and the
+blocks), ``omni.decoder`` (the readouts, the fusion blocks and the head).
 """
 from __future__ import annotations
 
+import fnmatch
 import math
 from functools import lru_cache
 from typing import Sequence
@@ -32,9 +41,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..utils.profiling import span
+from .blocks import init_random
 
-__all__ = ["OmnidataDPT", "load_omnidata_ckpt", "resize_bilinear",
-           "same_pad", "OMNIDATA_SKIP"]
+__all__ = ["OmnidataDPT", "load_omnidata_ckpt", "random_omnidata",
+           "resize_bilinear", "same_pad", "OMNIDATA_SKIP"]
 
 # keys of the public checkpoints that the model never reads
 OMNIDATA_SKIP = {
@@ -353,11 +364,13 @@ class OmnidataDPT(nn.Module):
             raise ValueError(f"unknown task {task!r}")
         self.task, self.vit_dim = task, vit_dim
         self.hook_blocks = tuple(hook_blocks)
-        self.pretrained = _Pretrained(vit_dim, vit_depth, vit_heads,
-                                      tuple(resnet_layers))
-        self.scratch = _Scratch((256, 512, vit_dim, vit_dim), features,
-                                1 if task == "depth" else 3)
-        self.to(resolve_device(device))
+        dev = resolve_device(device)
+        with dev:   # initialised on the device, not copied there
+            self.pretrained = _Pretrained(vit_dim, vit_depth, vit_heads,
+                                          tuple(resnet_layers))
+            self.scratch = _Scratch((256, 512, vit_dim, vit_dim), features,
+                                    1 if task == "depth" else 3)
+        self.to(dev)
 
     @property
     def device(self) -> torch.device:
@@ -373,37 +386,70 @@ class OmnidataDPT(nn.Module):
         if self.task == "depth":
             x = (x - 0.5) / 0.5
         vit, post, D = self.pretrained.model, self.pretrained, self.vit_dim
-        layer1, layer2, feat = vit.patch_embed.backbone(x)
+        with span("omni.backbone"):
+            layer1, layer2, feat = vit.patch_embed.backbone(x)
         gh, gw = H // 16, W // 16
-        t = vit.patch_embed.proj(feat).flatten(2).transpose(1, 2)
-        pos = vit.pos_embed
-        grid = resize_bilinear(pos[:, 1:].reshape(1, 24, 24, D), gh, gw)
-        pos = torch.cat([pos[:, :1], grid.reshape(1, gh * gw, D)], 1)
-        t = torch.cat([vit.cls_token.expand(B, 1, D), t], 1) + pos
-        hooked = {}
-        for i, blk in enumerate(vit.blocks):
-            t = blk(t)
-            if i in self.hook_blocks:
-                hooked[i] = t
+        with span("omni.vit"):
+            t = vit.patch_embed.proj(feat).flatten(2).transpose(1, 2)
+            pos = vit.pos_embed
+            grid = resize_bilinear(pos[:, 1:].reshape(1, 24, 24, D), gh, gw)
+            pos = torch.cat([pos[:, :1], grid.reshape(1, gh * gw, D)], 1)
+            t = torch.cat([vit.cls_token.expand(B, 1, D), t], 1) + pos
+            hooked = {}
+            for i, blk in enumerate(vit.blocks):
+                t = blk(t)
+                if i in self.hook_blocks:
+                    hooked[i] = t
 
         def grid_of(readout, tok):
             return readout(tok).transpose(1, 2).reshape(B, D, gh, gw)
 
-        a3, a4 = post.act_postprocess3, post.act_postprocess4
-        layer3 = a3[3](grid_of(a3[0], hooked[self.hook_blocks[0]]))
-        layer4 = a4[4](a4[3](grid_of(a4[0], hooked[self.hook_blocks[1]])))
-        s = self.scratch
-        rn = [getattr(s, f"layer{k}_rn")(v) for k, v in
-              enumerate((layer1, layer2, layer3, layer4), start=1)]
-        p = s.refinenet4(rn[3])
-        p = s.refinenet3(p, rn[2])
-        p = s.refinenet2(p, rn[1])
-        p = s.refinenet1(p, rn[0])
-        oc = s.output_conv
-        y = _upsample2(oc[0](p))
-        y = oc[5](oc[4](oc[3](oc[2](y))))
-        y = y.permute(0, 2, 3, 1)
+        with span("omni.decoder"):
+            a3, a4 = post.act_postprocess3, post.act_postprocess4
+            layer3 = a3[3](grid_of(a3[0], hooked[self.hook_blocks[0]]))
+            layer4 = a4[4](a4[3](grid_of(a4[0],
+                                         hooked[self.hook_blocks[1]])))
+            s = self.scratch
+            rn = [getattr(s, f"layer{k}_rn")(v) for k, v in
+                  enumerate((layer1, layer2, layer3, layer4), start=1)]
+            p = s.refinenet4(rn[3])
+            p = s.refinenet3(p, rn[2])
+            p = s.refinenet2(p, rn[1])
+            p = s.refinenet1(p, rn[0])
+            oc = s.output_conv
+            y = _upsample2(oc[0](p))
+            y = oc[5](oc[4](oc[3](oc[2](y))))
+            y = y.permute(0, 2, 3, 1)
         return y[..., 0] if self.task == "depth" else y
+
+
+@torch.no_grad()
+def random_omnidata(task: str, seed: int, device, scale=None, assign=None,
+                    **widths) -> OmnidataDPT:
+    """An ``OmnidataDPT`` of ``task`` (``widths``: its keyword sizes, the
+    published ones by default) with random weights from ``seed``:
+    ``init_random``'s scheme (fan-in-scaled convolutions, normal(0.02)
+    linear weights, tokens and position grid, zero biases, unit norms),
+    then ``scale`` (a gain by parameter name) and ``assign`` (a value by
+    parameter name, a number filling the tensor); a name may be an
+    ``fnmatch`` pattern, which must match some parameter."""
+    net = OmnidataDPT(task=task, device=device, **widths)
+    init_random(net, torch.Generator(device=net.device).manual_seed(
+        int(seed)))
+    params = dict(net.named_parameters())
+
+    def named(pattern):
+        hits = fnmatch.filter(params, pattern)
+        if not hits:
+            raise KeyError(f"no parameter of OmnidataDPT matches {pattern!r}")
+        return [params[n] for n in hits]
+    for pattern, gain in (scale or {}).items():
+        for p in named(pattern):
+            p.mul_(gain)
+    for pattern, value in (assign or {}).items():
+        for p in named(pattern):
+            p.copy_(torch.as_tensor(value, dtype=torch.float32))
+    return net.eval()
 
 
 def load_omnidata_ckpt(path: str, task: str = "depth",

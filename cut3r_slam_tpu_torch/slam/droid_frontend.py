@@ -18,7 +18,10 @@ NeurIPS 2021, arXiv:2108.10869; the public code's ``motion_filter.py``,
 - ``DroidMotionFilter``: fnet on every frame, one update step against the
   last keyframe, a keyframe when the mean |delta| exceeds ``thresh``; with
   ``kf_every`` > 0 the fixed-interval rule of ``motion_filter.py``
-  (frames off the interval are not encoded).
+  (frames off the interval are not encoded); with a mono prior, each
+  keyframe's depth and normal maps into the store
+  (``motion_filter.store_priors``), as HI-SLAM2 computes Omnidata's on
+  every keyframe it takes.
 - ``DroidGraph``: the factor graph of edges (i, j) with their age, hidden
   state, context features, cached pyramid, target and weight;
   neighbourhood and proximity factors (``frame_distance``), the
@@ -65,6 +68,7 @@ from ..ops.ba import bundle_adjust
 from ..ops.corr import build_corr_pyramid, corr_lookup
 from ..utils.profiling import count, span
 from .keyframe import KeyframeStore, SUBMAP_SIZE
+from .motion_filter import store_priors
 
 __all__ = ["DROID_DEFAULTS", "DroidVideo", "CorrCache", "DroidGraph",
            "DroidMotionFilter", "DroidFrontend", "frame_distance",
@@ -509,14 +513,19 @@ class DroidMotionFilter:
     ``kf_every`` frames; frame 0 and a sequence's last two frames are
     always taken. A keyframe's fmap, context and intrinsics / 8 go into
     the video, its image, timestamp and intrinsics into the keyframe
-    store."""
+    store, and with ``prior = (depth_fn, normal_fn)`` its prior maps into
+    the store's prior buffers."""
 
     def __init__(self, net: DroidNet, keyframes: KeyframeStore,
-                 video: DroidVideo, thresh: float = 2.4, kf_every: int = 0):
+                 video: DroidVideo, thresh: float = 2.4, kf_every: int = 0,
+                 prior=None):
         self.net, self.keyframes, self.video = net, keyframes, video
         self.device = video.poses.device
         self.thresh, self.kf_every = float(thresh), int(kf_every)
         self.fmap = self.ctx = None   # the last keyframe's fmap, (net, inp)
+        self.prior = prior
+        if prior is not None:
+            keyframes.ensure_prior_buffers()
 
     def _input(self, image_u8):
         x = torch.as_tensor(np.asarray(image_u8), device=self.device)
@@ -576,8 +585,10 @@ class DroidMotionFilter:
                                 device=fmap.device)
             self.video.append(fmap[0], self.ctx[0][0], self.ctx[1][0],
                               K / 8.0, first=kf.count == 0)
-            kf.append(tstamp, image_u8, intrinsic=intrinsic,
-                      image_map=image_map, intrinsic_map=intrinsic_map)
+            i = kf.append(tstamp, image_u8, intrinsic=intrinsic,
+                          image_map=image_map, intrinsic_map=intrinsic_map)
+            if self.prior is not None:
+                store_priors(kf, self.prior, i, image_u8)
         return True
 
 

@@ -6,7 +6,8 @@ lives in host numpy; the bulky per-keyframe tensors the tracking stages
 read (encoder tokens, submap pointmaps/confidences, half-res pointmaps)
 live on the device in preallocated buffers written in place. With the
 mono prior on, each keyframe's prior depth and normal maps are kept on
-the host (``prior_depth``, ``prior_normal``).
+the device too (``prior_depth`` (capacity, H, W), ``prior_normal``
+(capacity, H, W, 3)).
 """
 from __future__ import annotations
 
@@ -51,17 +52,18 @@ class KeyframeStore:
                                        W // 2, device=dev)
         self.pts_ds = torch.zeros(capacity, H // 2, W // 2, 3, device=dev)
 
-        # mono-prior maps, host numpy; allocated by ensure_prior_buffers()
-        # when the configuration turns the prior on
-        self.prior_depth: Optional[np.ndarray] = None
-        self.prior_normal: Optional[np.ndarray] = None
+        # mono-prior maps; allocated by ensure_prior_buffers() when the
+        # configuration turns the prior on
+        self.prior_depth: Optional[torch.Tensor] = None
+        self.prior_normal: Optional[torch.Tensor] = None
 
     def ensure_prior_buffers(self):
         if self.prior_depth is None:
             H, W = self.img_hw
-            self.prior_depth = np.zeros((self.capacity, H, W), np.float32)
-            self.prior_normal = np.zeros((self.capacity, H, W, 3),
-                                         np.float32)
+            self.prior_depth = torch.zeros(self.capacity, H, W,
+                                           device=self.device)
+            self.prior_normal = torch.zeros(self.capacity, H, W, 3,
+                                            device=self.device)
 
     def append(self, tstamp: int, image: np.ndarray,
                feat: Optional[torch.Tensor] = None,
@@ -92,14 +94,17 @@ class KeyframeStore:
 
     def remove(self, i: int):
         """Drop keyframe ``i`` (a tracker that removes keyframes): every
-        later slot's host metadata and encoder tokens move down by one."""
+        later slot's host metadata, encoder tokens, half-resolution
+        pointmap and prior maps move down by one."""
         n = self.count
         for name in ("tstamp", "pose", "intrinsic", "image", "image_map",
                      "intrinsic_map", "depth"):
             buf = getattr(self, name)
             buf[i:n - 1] = buf[i + 1:n].copy()
-        self.featI[i:n - 1] = self.featI[i + 1:n].clone()
-        self.pts_ds[i:n - 1] = self.pts_ds[i + 1:n].clone()
+        for buf in (self.featI, self.pts_ds, self.prior_depth,
+                    self.prior_normal):
+            if buf is not None:
+                buf[i:n - 1] = buf[i + 1:n].clone()
         self.count -= 1
 
     def last_feat(self) -> torch.Tensor:

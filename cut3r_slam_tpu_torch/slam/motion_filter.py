@@ -5,7 +5,8 @@ frames encode the image with the CUT3R ViT encoder and take it when the
 patch-feature overlap with the previous keyframe drops below ``thresh``.
 With a mono prior (``prior = (depth_fn, normal_fn)``, each taking the
 (H, W, 3) uint8 image), every keyframe's prior maps are computed here and
-stored in the keyframe store's prior buffers.
+stored in the keyframe store's prior buffers (``store_priors``, which
+DROID's filter shares).
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ import numpy as np
 import torch
 
 from ..models import CUT3R, normalize_images
+from ..utils.profiling import count, span
 from .keyframe import KeyframeStore
 
-__all__ = ["MotionFilter", "patch_overlap_ratio"]
+__all__ = ["MotionFilter", "patch_overlap_ratio", "store_priors"]
 
 
 def patch_overlap_ratio(feat0: torch.Tensor, feat1: torch.Tensor,
@@ -76,19 +78,25 @@ class MotionFilter:
         if take:
             i = kf.append(tstamp, image_u8, feat, pose, depth, intrinsic,
                           image_map, intrinsic_map)
-            self._store_priors(i, image_u8)
+            if self.prior is not None:
+                store_priors(kf, self.prior, i, image_u8)
         return take
 
-    @torch.inference_mode()
-    def _store_priors(self, idx: int, image_u8: np.ndarray):
-        if self.prior is None:
-            return
-        depth_fn, normal_fn = self.prior
-        kf = self.keyframes
-        kf.prior_depth[idx] = _host(depth_fn(image_u8))
-        kf.prior_normal[idx] = _host(normal_fn(image_u8))
 
-
-def _host(x) -> np.ndarray:
-    return x.float().cpu().numpy() if torch.is_tensor(x) \
-        else np.asarray(x, np.float32)
+@torch.no_grad()
+def store_priors(keyframes: KeyframeStore, prior, idx: int,
+                 image_u8: np.ndarray):
+    """Keyframe ``idx``'s prior maps (``prior = (depth_fn, normal_fn)`` on
+    its (H, W, 3) uint8 image) into the store's buffers on its device, with
+    no host wait. Spans ``prior.depth`` and ``prior.normal`` (one map,
+    its network and resizes), ``prior.store`` (the writes); counter
+    ``prior.keyframes``."""
+    depth_fn, normal_fn = prior
+    with span("prior.depth"):
+        depth = depth_fn(image_u8)
+    with span("prior.normal"):
+        normal = normal_fn(image_u8)
+    with span("prior.store"):
+        keyframes.prior_depth[idx] = depth
+        keyframes.prior_normal[idx] = normal
+    count("prior.keyframes")

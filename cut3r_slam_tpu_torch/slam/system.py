@@ -15,12 +15,14 @@ densification, the final global BA, the optional trajectory fill, the
 rendering eval (``psnr/<it>/*.json``, ``renders_kf/``) and the render
 export, the mapper checkpoint and the Gaussian PLY. ``reset_state``
 empties every store for a second sequence. ``motion_filter.use_prior``
-computes a monocular depth and normal prior per keyframe (``PriorNet``,
-from random weights or a ``prior_ckpt`` npz of the JAX package's flax
-params, or Omnidata DPT-hybrid from ``omnidata_ckpt_{depth,normal}``),
-stored in the keyframe store; no mapping loss reads it, as in the JAX
-package. ``GUI: {active: true, port: N, max_splats: M}`` serves the live
-viewer (``gui/server.py``) from a daemon thread; the loop holds
+computes a monocular depth and normal prior on every keyframe either
+tracker takes (``PriorNet``, from random weights or a ``prior_ckpt`` npz
+of the JAX package's flax params, or Omnidata DPT-hybrid from
+``omnidata_ckpt_{depth,normal}`` or, with ``prior_model: omnidata``, a
+seeded random draw; ``build_prior_fns``), stored in the keyframe store's
+buffers on the device; no mapping loss reads it, as in the JAX package.
+``GUI: {active: true, port: N, max_splats: M}`` serves the live viewer
+(``gui/server.py``) from a daemon thread; the loop holds
 ``state_lock`` around every stage and mapping slice that writes keyframe
 or map state, and the viewer reads and renders under it (the arena is
 updated in place).
@@ -59,11 +61,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import full_f32, resolve_device
+from .. import default_precision, full_f32, resolve_device
 from ..models import CUT3R
 from ..models.blocks import init_random
 from ..models.convert import params_from_jax
-from ..models.omnidata import load_omnidata_ckpt, resize_bilinear
+from ..models.omnidata import load_omnidata_ckpt, random_omnidata, \
+    resize_bilinear
 from ..models.priors import PriorNet, normalize_imagenet
 from ..geometry.lie import se3_from_matrix, se3_matrix
 from ..geometry.pointmap import pose_vec_to_matrix
@@ -157,17 +160,18 @@ class SLAMSystem:
         self.keyframes = KeyframeStore(buffer, img_hw, tokens, dim,
                                        map_hw=self.map_hw, device=self.device)
         self.backend = None
+        # the mono prior, built once: either tracker's filter stores its
+        # maps on every keyframe it takes
+        self.prior = build_prior_fns(mf_cfg, (H, W), self.device) \
+            if bool(mf_cfg.get("use_prior", False)) else None
         if self.tracker == "droid":
             self._init_droid()
         else:
-            prior = None
-            if bool(mf_cfg.get("use_prior", False)):
-                prior = build_prior_fns(mf_cfg, (H, W), self.device)
             self.filter = MotionFilter(model, self.keyframes,
                                        thresh=mf_cfg.get("thresh", 0.9),
                                        skip=mf_cfg.get("skip", 5),
                                        kf_every=mf_cfg.get("kf_every", 0),
-                                       prior=prior)
+                                       prior=self.prior)
             self.graph = FactorGraph()
             self.frontend = TrackFrontend(model, self.keyframes, self.graph)
             # the JAX SLAMSystem reads these three backend keys only (it
@@ -241,7 +245,7 @@ class SLAMSystem:
         self.graph = DroidGraph(self.model, video)
         self.filter = DroidMotionFilter(
             self.model, kf, video, thresh=c["filter_thresh"],
-            kf_every=kf_every)
+            kf_every=kf_every, prior=self.prior)
         # a fixed keyframe interval removes no keyframe
         self.frontend = DroidFrontend(self.model, kf, video, self.graph, c,
                                       remove_keyframes=kf_every == 0)
@@ -284,7 +288,7 @@ class SLAMSystem:
         if self.tracker == "droid":
             self._init_droid()
         else:
-            if self.filter.prior is not None:
+            if self.prior is not None:
                 kf.ensure_prior_buffers()
             self.filter.keyframes = kf
             self.frontend.keyframes = kf
@@ -796,17 +800,33 @@ class SLAMSystem:
 def build_prior_fns(mf_cfg: Dict, img_hw, device):
     """The mono prior of ``motion_filter``: (depth_fn, normal_fn), each
     (H, W, 3) uint8 image -> (H, W) depth / (H, W, 3) normal map on
-    ``device``. Omnidata DPT-hybrid when ``omnidata_ckpt_depth`` or
-    ``omnidata_ckpt_normal`` names a checkpoint (the image resized to
-    multiples of 32 and the output back, as ``jax.image.resize``
-    "bilinear"; a task without a checkpoint gives zeros); else
-    ``PriorNet`` depth and normal nets of ``prior_dim`` width and
-    ``prior_depth_blocks`` blocks with ``max(prior_dim // 64, 1)`` heads,
-    their weights from the ``prior_ckpt`` npz (the JAX package's flax
-    params, flattened under ``depth/`` and ``normal/``) or random (seeds 0
-    and 1)."""
+    ``device``. ``prior_model: omnidata``: Omnidata DPT-hybrid at the
+    published widths, drawn by ``random_omnidata`` from ``prior_seed``
+    (depth) and ``prior_seed`` + 1 (normal) with ``prior_init[<task>]``'s
+    gains and values. Without ``prior_model``, Omnidata when
+    ``omnidata_ckpt_depth`` or ``omnidata_ckpt_normal`` names a checkpoint
+    (a task without one gives zeros, as in the JAX package). Omnidata's
+    maps come through ``omnidata_prior_fn``. Else ``PriorNet`` depth and
+    normal nets of ``prior_dim`` width and ``prior_depth_blocks`` blocks
+    with ``max(prior_dim // 64, 1)`` heads, their weights from the
+    ``prior_ckpt`` npz (the JAX package's flax params, flattened under
+    ``depth/`` and ``normal/``) or random (seeds 0 and 1)."""
     H, W = img_hw
     omni = {t: mf_cfg.get(f"omnidata_ckpt_{t}") for t in ("depth", "normal")}
+    kind = mf_cfg.get("prior_model", "priornet")
+    if kind not in ("priornet", "omnidata"):
+        raise ValueError(f"motion_filter.prior_model {kind!r}: expected "
+                         f"'priornet' or 'omnidata'")
+    if kind == "omnidata":
+        if any(omni.values()):
+            raise ValueError("motion_filter.prior_model 'omnidata' draws "
+                             "the networks; omnidata_ckpt_<task> loads "
+                             "checkpoints without prior_model")
+        seed = int(mf_cfg.get("prior_seed", 0))
+        init = mf_cfg.get("prior_init", {})
+        return tuple(omnidata_prior_fn(random_omnidata(
+            task, seed + k, device, **init.get(task, {})), img_hw)
+            for k, task in enumerate(("depth", "normal")))
     if any(omni.values()):
         def make(task):
             if omni[task]:
@@ -837,16 +857,21 @@ def build_prior_fns(mf_cfg: Dict, img_hw, device):
 
 
 def omnidata_prior_fn(net, img_hw):
-    """An Omnidata net as a prior function: the (H, W, 3) uint8 image in
-    [0, 1] resized to multiples of 32, the net, its map resized back to
-    (H, W) (``jax.image.resize`` "bilinear" both ways)."""
+    """An Omnidata net as a prior function (the net as its ``net``): the
+    (H, W, 3) uint8 image in [0, 1] resized to multiples of 32, the net,
+    its map resized back to (H, W) (``jax.image.resize`` "bilinear" both
+    ways), at PyTorch's default precision (``default_precision``: TF32
+    convolutions through cuDNN, float32 matrix products) whatever the
+    process holds, unless the caller is inside ``full_f32``."""
     H, W = img_hw
     Hn, Wn = max(32, round(H / 32) * 32), max(32, round(W / 32) * 32)
 
     def fn(img):
         x = torch.as_tensor(np.asarray(img), device=net.device)
-        return resize_bilinear(net(resize_bilinear(
-            x[None].float() / 255.0, Hn, Wn)), H, W)[0]
+        with default_precision():
+            return resize_bilinear(net(resize_bilinear(
+                x[None].float() / 255.0, Hn, Wn)), H, W)[0]
+    fn.net = net
     return fn
 
 

@@ -150,10 +150,11 @@ def test_live_loop_priors_match_jax(systems):
     assert ts.keyframes.count == n >= 4
     np.testing.assert_array_equal(ts.keyframes.tstamp, js.keyframes.tstamp)
     kt, kj = ts.keyframes, js.keyframes
-    np.testing.assert_allclose(kt.prior_depth, kj.prior_depth, **TOL)
-    np.testing.assert_allclose(kt.prior_normal, kj.prior_normal, **TOL)
-    assert (kt.prior_depth[:n] > 0).all() and not kt.prior_depth[n:].any()
-    np.testing.assert_allclose(np.linalg.norm(kt.prior_normal[:n], axis=-1),
+    depth, normal = kt.prior_depth.cpu().numpy(), kt.prior_normal.cpu().numpy()
+    np.testing.assert_allclose(depth, kj.prior_depth, **TOL)
+    np.testing.assert_allclose(normal, kj.prior_normal, **TOL)
+    assert (depth[:n] > 0).all() and not depth[n:].any()
+    np.testing.assert_allclose(np.linalg.norm(normal[:n], axis=-1),
                                1.0, atol=1e-5)
 
 
@@ -165,11 +166,11 @@ def test_reset_state_keeps_the_prior_buffers(systems):
     for s in (js, ts):
         s.reset_state()
         kf = s.keyframes
-        assert kf.prior_depth.shape == (16, H, W)
-        assert kf.prior_normal.shape == (16, H, W, 3)
+        assert tuple(kf.prior_depth.shape) == (16, H, W)
+        assert tuple(kf.prior_normal.shape) == (16, H, W, 3)
         assert not kf.prior_depth.any() and not kf.prior_normal.any()
         s.run(0, img, np.float32([40, 40, W / 2, H / 2]))
-    np.testing.assert_allclose(ts.keyframes.prior_depth[0],
+    np.testing.assert_allclose(ts.keyframes.prior_depth[0].cpu().numpy(),
                                js.keyframes.prior_depth[0], **TOL)
     assert (ts.keyframes.prior_depth[0] > 0).all()
 
